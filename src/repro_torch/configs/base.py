@@ -1,0 +1,127 @@
+"""Architecture, input-shape and optimizer-recipe configuration.
+
+The port's copy of ``repro/configs/base.py`` for slice 1: the fields the
+BERT encoder path reads, ``padded_vocab`` and ``reduced()`` (the CPU smoke
+variant, derived exactly as the reference derives it), ``InputShape``,
+``OptimSpec`` and the ``onebit_adam`` recipe.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "encoder")
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                    # one of FAMILIES
+    n_layers: int
+    d_model: int
+    n_heads: int                   # query heads
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    rope_theta: float = 10_000.0
+    causal: bool = True            # False for encoder-only (BERT)
+    mlp_kind: str = "swiglu"       # "swiglu" | "gelu"
+    norm_eps: float = 1e-5
+    compute_dtype: str = "bfloat16"
+    remat: bool = True             # activation-checkpoint each block
+    attn_chunk: int = 2048         # KV chunk of the reference's online softmax
+    source: str = ""               # citation
+
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
+        if self.n_heads and self.d_model % self.n_heads:
+            raise ValueError("d_model must split over the heads")
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    def padded_vocab(self, tp: int = 1) -> int:
+        q = 8 * tp  # keep byte-alignment for the vocab-parallel shard
+        return ((self.vocab + q - 1) // q) * q
+
+    def reduced(self) -> "ArchConfig":
+        """The CPU-smoke variant: 2 layers, d_model 256, <= 4 heads."""
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=2,
+            d_model=256,
+            n_heads=n_heads,
+            n_kv_heads=min(self.n_kv_heads, max(n_heads // 2, 1)),
+            d_ff=512,
+            vocab=512,
+            compute_dtype="float32",
+            attn_chunk=64,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimSpec:
+    """Named training recipe: registry names of the optimizer and the
+    compressor, and the warmup switch policy ("steps" = manual T_w,
+    "auto" = the Sec. 7.1 variance-ratio rule)."""
+
+    name: str = "onebit_adam"
+    optimizer: str = "onebit_adam"
+    compressor: str = "onebit"
+    block_size: int = 4096
+    switch_mode: str = "steps"
+    var_freeze_threshold: float = 0.96
+
+
+_OPTIM_RECIPES: Dict[str, OptimSpec] = {}
+
+
+def register_optim_recipe(spec: OptimSpec) -> OptimSpec:
+    _OPTIM_RECIPES[spec.name] = spec
+    return spec
+
+
+def get_optim_recipe(name: str) -> OptimSpec:
+    if name not in _OPTIM_RECIPES:
+        raise KeyError(f"unknown optim recipe {name!r}; "
+                       f"registered: {sorted(_OPTIM_RECIPES)}")
+    return _OPTIM_RECIPES[name]
+
+
+def list_optim_recipes():
+    return sorted(_OPTIM_RECIPES)
+
+
+register_optim_recipe(OptimSpec(name="onebit_adam"))
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ArchConfig:
+    if name.endswith("-smoke"):
+        return get_config(name[:-len("-smoke")]).reduced()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; registered: "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_archs():
+    return sorted(_REGISTRY)

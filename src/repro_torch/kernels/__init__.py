@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+``onebit``      EF 1-bit compress and decompress (``csrc/onebit.cu``)
+``fused_adam``  fused BertAdam update (``csrc/fused_adam.cu``)
+``build``       builds ``csrc/*.cu`` into one ctypes library; launch counts
+"""

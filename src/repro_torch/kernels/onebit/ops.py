@@ -1,0 +1,49 @@
+"""Public 1-bit compression ops: the device of the input decides.
+
+A CUDA tensor takes the Hopper kernel (``kernel.py``), which raises on
+anything it does not take; a CPU tensor takes the plain version
+(``ref.py``).  Any other device raises.  The wire format is the one of
+``repro_torch.core.compression``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.onebit import kernel as K
+from repro_torch.kernels.onebit import ref as R
+
+DEFAULT_BLOCK = K.DEFAULT_BLOCK
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no 1-bit compression path for device {t.device}")
+
+
+def ef_compress_fused(x: torch.Tensor, err: torch.Tensor,
+                      block_size: int = DEFAULT_BLOCK
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused (compress(x+err), new_err) — the EF hot path."""
+    if _on_card(x):
+        return K.ef_compress_fused(x, err, block_size)
+    return R.ef_compress_fused(x, err, block_size)
+
+
+def compress(x: torch.Tensor, block_size: int = DEFAULT_BLOCK
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d,) f32 -> (packed (d/8,) u8, scales (d/block,) f32): the fused
+    kernel with a zero error, as the reference's ``ops.compress``."""
+    packed, scales, _ = ef_compress_fused(x, torch.zeros_like(x), block_size)
+    return packed, scales
+
+
+def decompress(packed: torch.Tensor, scales: torch.Tensor,
+               block_size: int = DEFAULT_BLOCK) -> torch.Tensor:
+    if _on_card(packed):
+        return K.decompress(packed, scales, block_size)
+    return R.decompress(packed, scales, block_size)

@@ -1,0 +1,94 @@
+"""The port's Hopper kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry
+the ``cuda`` marker and skip without a card.  The file imports torch and
+the port only, so it runs on a machine without JAX:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances: packed sign bits and decompress bitwise; scales rtol 1e-6 and
+new_err rtol 1e-5 / atol 1e-6 (the block sum runs in another order than
+torch's mean); Adam rtol 1e-5 / atol 5e-7 (tests/test_kernels.py's).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.fused_adam import kernel as adam_kernel  # noqa: E402
+from repro_torch.kernels.fused_adam import ref as adam_ref  # noqa: E402
+from repro_torch.kernels.onebit import kernel as onebit_kernel  # noqa: E402
+from repro_torch.kernels.onebit import ref as onebit_ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(card, seed, n, scale=1.0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn(n, generator=gen, device=card) * scale
+
+
+@pytest.mark.parametrize("block", [256, 512, 4096])
+def test_onebit_kernels_match_plain(card, block):
+    x, err = _randn(card, 0, 64 * block), _randn(card, 1, 64 * block, 0.1)
+    # +0.0 and -0.0 (buf = -0.0 + -0.0) both pack as 1
+    x[:2] = err[:2] = torch.tensor([0.0, -0.0], device=card)
+    before = build.launch_counts()
+    pk, sc, ne = onebit_kernel.ef_compress_fused(x, err, block)
+    rpk, rsc, rne = onebit_ref.ef_compress_fused(x, err, block)
+    assert torch.equal(pk, rpk)
+    torch.testing.assert_close(sc, rsc, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(ne, rne, rtol=1e-5, atol=1e-6)
+    assert torch.equal(onebit_kernel.decompress(rpk, rsc, block),
+                       onebit_ref.decompress(rpk, rsc, block))
+    after = build.launch_counts()
+    assert after["ef_compress"] == before["ef_compress"] + 1
+    assert after["decompress"] == before["decompress"] + 1
+
+
+def test_onebit_kernel_packs_nan_as_zero(card):
+    """buf >= 0 is false for NaN: its sign bit packs 0, as in the plain
+    version and the reference."""
+    x = _randn(card, 4, 512)
+    x[5] = float("nan")
+    err = torch.zeros_like(x)
+    pk, _, _ = onebit_kernel.ef_compress_fused(x, err, 512)
+    rpk, _, _ = onebit_ref.ef_compress_fused(x, err, 512)
+    assert torch.equal(pk, rpk)
+    assert int(pk[0]) >> 5 & 1 == 0
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_adam_kernel_matches_plain(card, wd):
+    x, m, g = (_randn(card, s, 8192 * 4, sc)
+               for s, sc in ((0, 1.0), (1, 0.01), (2, 0.01)))
+    v = _randn(card, 3, 8192 * 4, 1e-4).abs()
+    got = adam_kernel.adam_step(x, m, v, g, 1e-3, 0.9, 0.999, 1e-8, wd)
+    want = adam_ref.adam_step(x, m, v, g, 1e-3, 0.9, 0.999, 1e-8, wd)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-7)
+
+
+def test_small_run_on_card_matches_cpu(card):
+    """The port's run on the card and on the CPU from one seed (same CPU
+    generator init, same numpy batches) agree to rtol 1e-3 (cuBLAS and the
+    CPU BLAS sum in other orders; compressed steps can flip single sign
+    bits near zero)."""
+    from repro_torch.launch.train import run
+    kw = dict(arch="bert-large-smoke", steps=4, warmup_steps=2, batch=2,
+              seq=32, block_size=512, lr=2e-3, lr_warmup=2, verbose=False)
+    on_card = run(device="cuda", **kw)
+    assert on_card["launches"] == {"adam_step": 2, "ef_compress": 4,
+                                   "decompress": 4}
+    cpu = run(device="cpu", **kw)
+    np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
+                               [h["loss"] for h in cpu["history"]],
+                               rtol=1e-3)
