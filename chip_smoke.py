@@ -22,9 +22,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   6. profile — one more warmup-stage and compressed-stage step on the
                main path's model under torch.profiler: device time by
                kernel group and the device's idle share (measurement only).
+  7. flash   — the flash-attention kernel against its plain version on the
+               card: small f32 shapes (S 128/256/512, D 32/64/128, causal
+               and not, windows 32/64/128) and the serving shape
+               (8, 24, 2048, 128) bf16 causal, with CUDA-event times of the
+               kernel, the plain version and PyTorch's
+               scaled_dot_product_attention (timed only), and the bound.
+  8. serve-small — the port's ServeEngine on ``llama3.2-3b-smoke`` with
+               attn_impl="pallas", on the card and on the CPU from one seed:
+               prefill logits and 8 teacher-forced decode steps agree.
+  9. serve-main — the serving path through the user entry point
+               ``repro_torch.serve.ServeEngine.generate``: full-width,
+               full-depth llama3.2-3b, random weights from seed 0, batch 8
+               x 2048-token prompts, 32 greedy new tokens; launch counts
+               read around exactly this run (28 flash launches).
+ 10. serve-profile — one prefill and one decode step under torch.profiler
+               (measurement only).
 
-It prints the ``{"kernels": [...]}`` line, the card line, and as its last
-line ``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 just before each main path (training in phase
+5, serving in phase 9) and read just after it.  It prints the
+``{"kernels": [...]}`` line, the card line, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -43,6 +61,7 @@ import torch  # noqa: E402
 # H100 SXM peak rates (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 MAIN = dict(arch="bert-large", recipe="onebit_adam", steps=6,
             warmup_steps=3, batch=16, seq=128, block_size=4096)
@@ -52,7 +71,24 @@ SMALL = dict(arch="bert-large-smoke", recipe="onebit_adam", steps=5,
 # cuBLAS and the CPU BLAS sum in other orders; after the switch a ULP
 # difference near zero can flip single sign bits of the 1-bit payload
 SMALL_LOSS_RTOL = 1e-3
-EXPECTED_LAUNCHES = {"adam_step": 3, "ef_compress": 6, "decompress": 6}
+EXPECTED_LAUNCHES = {"adam_step": 3, "ef_compress": 6, "decompress": 6,
+                     "flash_attention": 0}
+# block sizes beside the main path's 4096 that ef_compress must take
+# (multiples of 8 that are not multiples of 32, and one that is)
+SMALL_BLOCKS = (8, 24, 40, 520)
+
+SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
+             seed=0)
+SERVE_SMALL = dict(arch="llama3.2-3b-smoke", batch=2, prompt=64, steps=8,
+                   seed=0)
+# f32 on both sides (TF32 off); cuBLAS and the CPU BLAS, and the kernel's
+# online softmax and the plain one, sum in other orders: the tolerance of
+# tests/test_kernels.py's prefill test
+SERVE_SMALL_TOL = dict(rtol=1e-4, atol=1e-4)
+# the serving shape in bf16: tests/test_kernels.py:176's tolerance, one
+# bf16 rounding of the output on either side of a near-tie
+FLASH_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+FLASH_F32_TOL = dict(rtol=1e-5, atol=2e-6)
 
 
 def log(msg: str) -> None:
@@ -84,11 +120,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
-    operations over the f32 peak."""
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate for their type (f32 by default)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -116,6 +152,17 @@ def phase_kernels(d: int, block: int, seed: int = 0):
         return torch.randn(d, generator=gen, device=dev) * scale
 
     entries = []
+    for blk in SMALL_BLOCKS:
+        xs = torch.randn(64 * blk, generator=gen, device=dev)
+        es = torch.randn(64 * blk, generator=gen, device=dev) * 0.1
+        got, want = (OK.ef_compress_fused(xs, es, blk),
+                     OR.ef_compress_fused(xs, es, blk))
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"ef_compress block {blk}: packed is not "
+                                 "bitwise the plain version")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+    log(f"[kernels] ef_compress at blocks {SMALL_BLOCKS}: packed bitwise")
     x, err = randn(), randn(0.1)
     pk, sc, ne = OK.ef_compress_fused(x, err, block)
     pk_r, sc_r, ne_r = OR.ef_compress_fused(x, err, block)
@@ -245,14 +292,42 @@ def phase_main():
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "flash_fwd_kernel" in low:
+        return "flash attention (csrc)"
     if any(k in low for k in ("ef_compress_kernel", "decompress_kernel",
                               "adam_kernel")):
         return "port kernels (csrc)"
-    if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90_")):
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
         return "matmul (cuBLAS)"
     if "reduce" in low:
         return "reductions"
     return "elementwise and other"
+
+
+def _device_breakdown(prof, wall_ms: float) -> dict:
+    """Device time by kernel group and by name, and the device's idle
+    share of ``wall_ms``, from one torch.profiler trace."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name, by_group = {}, {}
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        g = _kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + ms
+    busy = sum(by_group.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": (1.0 - busy / wall_ms) if busy else None,
+            "n_kernels": len(kernels), "by_group_ms": by_group,
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def _log_breakdown(tag: str, what: str, r: dict) -> None:
+    log(f"[{tag}] {what}: wall {r['wall_ms']:.1f} ms, device busy "
+        f"{r['device_busy_ms']:.1f} ms over {r['n_kernels']} kernels; "
+        + ", ".join(f"{g} {ms:.1f} ms"
+                    for g, ms in sorted(r["by_group_ms"].items())))
 
 
 def phase_profile(state) -> dict:
@@ -260,7 +335,6 @@ def phase_profile(state) -> dict:
     model and state under torch.profiler, after the untraced run: device
     time by kernel group, the top kernels, and the device's idle share of
     the step's wall time.  A measurement, not a gate."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -283,24 +357,232 @@ def phase_profile(state) -> dict:
             train_step(state, opt, batch, 1e-4, stage)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        by_name, by_group = {}, {}
-        for e in kernels:
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
-            g = _kernel_group(e.name)
-            by_group[g] = by_group.get(g, 0.0) + us / 1e3
-        busy = sum(by_group.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        out[stage] = {
-            "wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": (1.0 - busy / wall_ms) if busy else None,
-            "n_kernels": len(kernels), "by_group_ms": by_group,
-            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
-        log(f"[profile] {stage}: wall {wall_ms:.1f} ms, device busy "
-            f"{busy:.1f} ms over {len(kernels)} kernels; " + ", ".join(
-                f"{g} {ms:.1f} ms" for g, ms in sorted(by_group.items())))
+        out[stage] = _device_breakdown(prof, wall_ms)
+        _log_breakdown("profile", stage, out[stage])
+    return out
+
+
+def phase_flash(seed: int = 0) -> dict:
+    """The flash-attention kernel against its plain version: small f32
+    shapes at tests/test_kernels.py's tolerance, then the serving shape in
+    bf16, timed beside the plain version and PyTorch's fused attention.
+    Returns the kernel's entry of the JSON line (launches filled later)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as FR
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def qkv(shape, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for _ in range(3)]
+
+    cases = [(s, d, causal, None) for s in (128, 256, 512)
+             for d in (32, 64, 128) for causal in (True, False)]
+    cases += [(256, 64, True, w) for w in (32, 64, 128)]
+    err_f32 = 0.0
+    for s, d, causal, window in cases:
+        q, k, v = qkv((1, 2, s, d), torch.float32)
+        got = FK.flash_attention(q, k, v, causal=causal, window=window)
+        want = FR.sdpa(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, want, **FLASH_F32_TOL)
+        err_f32 = max(err_f32, float((got - want).abs().max()))
+    log(f"[flash] {len(cases)} small f32 cases ok (rtol 1e-5, atol 2e-6), "
+        f"max abs err {err_f32:.3e}")
+
+    b, h, s, d = 8, 24, 2048, 128
+    q, k, v = qkv((b, h, s, d), torch.bfloat16)
+    got = FK.flash_attention(q, k, v, causal=True)
+    want = FR.sdpa(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+    err = float((got.float() - want.float()).abs().max())
+    same = float((got.view(torch.int16) == want.view(torch.int16)).float()
+                 .mean())
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: FK.flash_attention(q, k, v, causal=True))
+    plain = time_ms(lambda: FR.sdpa(q, k, v, causal=True), reps=5)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True))
+    # each of q, k, v read once and o written once; the causal half of
+    # the two (S x S x D) products
+    n_bytes = 4 * b * h * s * d * q.element_size()
+    n_ops = 2 * b * h * s * s * d
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S)
+    log(f"[flash] (8, 24, 2048, 128) bf16 causal ok (rtol 2e-2, atol 2e-2; "
+        f"{same:.4f} of outputs bitwise the plain version's), max abs err "
+        f"{err:.3e}; {ms:.3f} ms (plain {plain:.3f} ms, "
+        f"scaled_dot_product_attention {lib:.3f} ms, bound {b_ms:.3f} ms "
+        f"by {b_by}), {n_ops / (ms / 1e3) / 1e12:.1f} TFLOP/s")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:84", ok=True,
+        max_abs_err=err, max_abs_err_f32_small=err_f32,
+        bitwise_share=same, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib, launches_per_prefill=28)
+
+
+def _teacher_forced(eng, toks: torch.Tensor, s: int, n: int):
+    """Prefill logits and ``n`` teacher-forced decode logits of ``eng``'s
+    model on ``toks`` (B, s + n), as f32 on the CPU."""
+    from repro_torch.models import transformer as T
+    cfg = eng.cfg
+    toks = toks.to(eng.device)
+    with torch.inference_mode():
+        logits, caches = T.prefill(eng.params, {"tokens": toks[:, :s]}, cfg,
+                                   cache_len=s + n)
+        out = [logits.float().cpu()]
+        for i in range(n):
+            logits, caches = T.decode_step(
+                eng.params, {"tokens": toks[:, s + i:s + i + 1]}, caches,
+                s + i, cfg)
+            out.append(logits.float().cpu())
+    return out
+
+
+def phase_serve_small() -> float:
+    """The serving engine's model on the card and on the CPU from one
+    seed, with attn_impl="pallas": prefill and 8 teacher-forced decode
+    steps give the same logits within SERVE_SMALL_TOL."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    sp = SERVE_SMALL
+    cfg = dataclasses.replace(get_config(sp["arch"]), attn_impl="pallas")
+    params = T.init_params(cfg, torch.Generator().manual_seed(sp["seed"]))
+    toks = torch.randint(0, cfg.vocab, (sp["batch"], sp["prompt"]
+                                        + sp["steps"]),
+                         generator=torch.Generator().manual_seed(1))
+    before = build.launch_counts()["flash_attention"]
+    card = _teacher_forced(ServeEngine(cfg, params, device="cuda"), toks,
+                           sp["prompt"], sp["steps"])
+    if build.launch_counts()["flash_attention"] != before + cfg.n_layers:
+        raise AssertionError("serve-small: the card's prefill did not run "
+                             "the flash kernel once per layer")
+    cpu = _teacher_forced(ServeEngine(cfg, params, device="cpu"), toks,
+                          sp["prompt"], sp["steps"])
+    err = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"serve-small: non-finite logits at {i}")
+        torch.testing.assert_close(a, b, **SERVE_SMALL_TOL)
+        err = max(err, float((a - b).abs().max()))
+    log(f"[serve-small] {sp['arch']} card vs cpu: prefill + {sp['steps']} "
+        f"teacher-forced decode logits agree (rtol/atol 1e-4), max abs err "
+        f"{err:.3e}")
+    return err
+
+
+def phase_serve_main():
+    """The serving path through ServeEngine.generate at full size; launch
+    counts read around exactly the measured generate call."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    sv = SERVE
+    cfg = dataclasses.replace(get_config(sv["arch"]), attn_impl="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(sv["seed"])
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device="cuda")
+    eng = ServeEngine(cfg, params, device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (sv["batch"], sv["prompt"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up at the same shapes: cuBLAS handles, the allocator's pools
+    eng.generate(prompts, GenerationConfig(max_new_tokens=2))
+    gc = GenerationConfig(max_new_tokens=sv["new_tokens"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, gc)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
+            "flash_attention": cfg.n_layers}
+    if counts != want:
+        raise AssertionError(f"serve launch counts {counts}, expected {want}")
+    tokens = out["tokens"]
+    if tuple(tokens.shape) != (sv["batch"], sv["new_tokens"]) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"serve: bad tokens {tokens.shape}")
+    # the logits behind the first two tokens, outside the counted run
+    with torch.inference_mode():
+        logits, caches = T.prefill(eng.params, {"tokens": prompts}, cfg,
+                                   cache_len=sv["prompt"] + 1)
+        logits2, _ = T.decode_step(eng.params, {"tokens": tokens[:, :1]},
+                                   caches, sv["prompt"], cfg)
+        finite = bool(torch.isfinite(logits).all()
+                      and torch.isfinite(logits2).all())
+        first_same = float((logits[:, :cfg.vocab].float().argmax(-1)
+                            == tokens[:, 0]).float().mean())
+    del logits, logits2, caches
+    if not finite:
+        raise AssertionError("serve: non-finite logits")
+    dec = out["decode_ms"]
+    med = sorted(dec)[len(dec) // 2]
+    n_tok = sv["batch"] * sv["new_tokens"]
+    stats = dict(
+        arch=sv["arch"], batch=sv["batch"], prompt=sv["prompt"],
+        new_tokens=sv["new_tokens"], setup_s=setup_s,
+        prefill_ms=out["prefill_ms"], decode_ms=dec,
+        decode_ms_median=med, generate_wall_ms=wall_ms,
+        tokens_per_s=n_tok / (wall_ms / 1e3),
+        decode_tokens_per_s=sv["batch"] / (med / 1e3),
+        prefill_tokens_per_s=sv["batch"] * sv["prompt"]
+        / (out["prefill_ms"] / 1e3),
+        peak_bytes=peak, first_token_matches_prefill_argmax=first_same)
+    log(f"[serve-main] {sv['arch']} batch {sv['batch']} x prompt "
+        f"{sv['prompt']}, {sv['new_tokens']} new tokens: prefill "
+        f"{out['prefill_ms']:.1f} ms, decode median {med:.2f} ms/step "
+        f"(min {min(dec):.2f}, max {max(dec):.2f}), generate wall "
+        f"{wall_ms:.1f} ms, {stats['tokens_per_s']:.1f} tokens/s overall, "
+        f"{stats['decode_tokens_per_s']:.1f} tokens/s in decode, peak "
+        f"memory {peak} bytes, launches {counts}, set-up {setup_s:.1f} s")
+    return counts, stats, eng, prompts
+
+
+def phase_serve_profile(eng, prompts) -> dict:
+    """One prefill and one decode step of the serving model under
+    torch.profiler: device time by kernel group and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    cfg, s = eng.cfg, prompts.shape[1]
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, caches = T.prefill(eng.params, {"tokens": prompts}, cfg,
+                                       cache_len=s + 2)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out["prefill"] = _device_breakdown(prof, wall_ms)
+        tok = logits[:, :cfg.vocab].argmax(-1, keepdim=True)
+        T.decode_step(eng.params, {"tokens": tok}, caches, s, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            T.decode_step(eng.params, {"tokens": tok}, caches, s + 1, cfg)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out["decode"] = _device_breakdown(prof, wall_ms)
+    for what, r in out.items():
+        _log_breakdown("serve-profile", what, r)
     return out
 
 
@@ -323,10 +605,22 @@ def main() -> int:
     phase_small()
     counts, stats, state = phase_main()
     stats["profile"] = phase_profile(state)
+    del state
+    torch.cuda.empty_cache()
+    flash = phase_flash()
+    phase_serve_small()
+    serve_counts, serve_stats, eng, prompts = phase_serve_main()
+    serve_stats["profile"] = phase_serve_profile(eng, prompts)
+    del eng, prompts
+    torch.cuda.empty_cache()
     for e in entries:
         e["launches"] = counts[e["name"]]
+    flash["launches"] = serve_counts["flash_attention"]
+    entries.append(flash)
+    for e in entries:
         e["kernel_ms"] = e["ms"]
     print(json.dumps({"main_path": stats}))
+    print(json.dumps({"serve_path": serve_stats}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

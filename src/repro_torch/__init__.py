@@ -6,10 +6,15 @@ The module layout mirrors the JAX package ``repro`` (the reference), so
 ``repro/core/compression.py`` and so on.  The port imports ``torch`` and
 numpy only — never JAX, and nothing of ``repro``.
 
-Slice 1 (this package today): data-parallel 1-bit Adam training of the
-BERT encoder — the ``onebit_adam`` recipe, the flat Fig. 3 exchange, the
-replicated state layout and the manual T_w switch — with hand-written
-Hopper kernels for EF 1-bit compress, decompress and the fused Adam
-update (``kernels/``, ``csrc/``).  Entry point:
-``repro_torch.launch.train.run`` / ``python -m repro_torch.launch.train``.
+Slice 1: data-parallel 1-bit Adam training of the BERT encoder — the
+``onebit_adam`` recipe, the flat Fig. 3 exchange, the replicated state
+layout and the manual T_w switch — with hand-written Hopper kernels for
+EF 1-bit compress, decompress and the fused Adam update (``kernels/``,
+``csrc/``).  Entry point: ``repro_torch.launch.train.run`` /
+``python -m repro_torch.launch.train``.
+
+Slice 2: serving the dense decoders (``llama3.2-3b``) — prefill and
+KV-cached decode, with the prefill's attention in a hand-written Hopper
+flash-attention kernel under ``attn_impl="pallas"``.  Entry point:
+``repro_torch.serve.ServeEngine``.
 """

@@ -1,16 +1,18 @@
 """Architecture, input-shape and optimizer-recipe configuration.
 
-The port's copy of ``repro/configs/base.py`` for slice 1: the fields the
-BERT encoder path reads, ``padded_vocab`` and ``reduced()`` (the CPU smoke
-variant, derived exactly as the reference derives it), ``InputShape``,
-``OptimSpec`` and the ``onebit_adam`` recipe.
+The port's copy of ``repro/configs/base.py``: the fields the BERT encoder
+training path (slice 1) and the dense-decoder serving path (slice 2)
+read, ``padded_vocab`` and ``reduced()`` (the CPU smoke variant, derived
+exactly as the reference derives it), ``InputShape``, ``OptimSpec`` and
+the ``onebit_adam`` recipe.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "encoder")
+ATTN_IMPLS = ("auto", "full", "chunked", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,18 +33,27 @@ class ArchConfig:
     n_kv_heads: int
     d_ff: int
     vocab: int
+    window: Optional[int] = None   # sliding-window size (Mixtral: 4096)
     rope_theta: float = 10_000.0
     causal: bool = True            # False for encoder-only (BERT)
     mlp_kind: str = "swiglu"       # "swiglu" | "gelu"
+    # input modality; the port serves "tokens" only
+    embed_kind: str = "tokens"
     norm_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
     remat: bool = True             # activation-checkpoint each block
     attn_chunk: int = 2048         # KV chunk of the reference's online softmax
+    # "full" (plain masked softmax), "pallas" (the flash-attention kernel,
+    # forward only), "chunked" (not ported), "auto" (chunked past
+    # 4 * attn_chunk for causal models, else full)
+    attn_impl: str = "auto"
     source: str = ""               # citation
 
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.n_heads and self.d_model % self.n_heads:
             raise ValueError("d_model must split over the heads")
 
@@ -66,6 +77,7 @@ class ArchConfig:
             n_kv_heads=min(self.n_kv_heads, max(n_heads // 2, 1)),
             d_ff=512,
             vocab=512,
+            window=min(self.window, 64) if self.window else None,
             compute_dtype="float32",
             attn_chunk=64,
         )

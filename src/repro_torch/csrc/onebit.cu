@@ -17,10 +17,14 @@
 //     by block_size. The second loop recomputes buf = x+err (the block's
 //     x/err lines are still in L2, so device memory is read once), packs the
 //     sign bits with one __ballot_sync per 32 elements and writes new_err.
-//     Lane l of a warp holds element 32w+l, so the ballot mask stored as a
-//     little-endian uint32 is exactly the wire layout: bit j of byte i is
+//     Lane l of a warp holds element 32w+l, so byte k of the ballot mask is
+//     exactly packed byte 4w+k of the block: bit j of byte i is
 //     buf[8i+j] >= 0 (LSB first). -0.0 packs 1 and NaN packs 0, as in the
-//     reference.
+//     reference. The block size is any multiple of 8, so a block's first
+//     packed byte need not be 4-byte aligned and its last ballot may run
+//     past the block: lanes 0-3 each store one byte of the mask (one
+//     coalesced 4-byte store instruction per warp), and only the bytes that
+//     lie inside the block.
 //   * decompress gives each thread one packed byte and writes its 8 floats
 //     as two float4 stores; the value is bit ? s : -s, which is bitwise the
 //     reference's signs * scale.
@@ -35,7 +39,7 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 ef_compress_kernel(const float* __restrict__ x, const float* __restrict__ err,
-                   uint32_t* __restrict__ packed, float* __restrict__ scales,
+                   uint8_t* __restrict__ packed, float* __restrict__ scales,
                    float* __restrict__ new_err, int64_t block_size) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * block_size;
   const float* xb = x + base;
@@ -72,15 +76,19 @@ ef_compress_kernel(const float* __restrict__ x, const float* __restrict__ err,
   const float scale = scale_sh;
 
   // sign bitmap (one ballot per 32 elements) and the exact EF residual
-  uint32_t* pb = packed + base / 32;
+  // w0 is uniform across the warp, so every lane reaches the ballot
+  uint8_t* pb = packed + base / 8;
   for (int64_t w0 = static_cast<int64_t>(warp) * 32; w0 < block_size;
        w0 += kThreads) {
     const int64_t i = w0 + lane;
-    const float buf = xb[i] + eb[i];
-    const bool pos = buf >= 0.f;
+    const bool in_block = i < block_size;
+    const float buf = in_block ? xb[i] + eb[i] : 0.f;
+    const bool pos = in_block && buf >= 0.f;
     const uint32_t mask = __ballot_sync(0xffffffffu, pos);
-    if (lane == 0) pb[w0 / 32] = mask;
-    nb[i] = buf - (pos ? scale : -scale);
+    if (lane < 4 && w0 + 8 * lane < block_size) {
+      pb[w0 / 8 + lane] = static_cast<uint8_t>(mask >> (8 * lane));
+    }
+    if (in_block) nb[i] = buf - (pos ? scale : -scale);
   }
 }
 
@@ -113,8 +121,8 @@ int grid_for(int64_t work) {
 
 extern "C" {
 
-// x, err, new_err: (d,) f32; packed: (d/8,) u8, 4-byte aligned;
-// scales: (d/block_size,) f32. d % block_size == 0, block_size % 32 == 0.
+// x, err, new_err: (d,) f32; packed: (d/8,) u8; scales: (d/block_size,)
+// f32. d % block_size == 0, block_size % 8 == 0.
 int repro_ef_compress(const void* x, const void* err, void* packed,
                       void* scales, void* new_err, int64_t d,
                       int64_t block_size, void* stream) {
@@ -123,7 +131,7 @@ int repro_ef_compress(const void* x, const void* err, void* packed,
     ef_compress_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(err),
-        static_cast<uint32_t*>(packed), static_cast<float*>(scales),
+        static_cast<uint8_t*>(packed), static_cast<float*>(scales),
         static_cast<float*>(new_err), block_size);
   }
   return static_cast<int>(cudaGetLastError());

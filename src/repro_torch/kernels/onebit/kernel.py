@@ -29,10 +29,11 @@ def _check_f32(name: str, t: torch.Tensor, n: int) -> None:
 
 
 def _check_block(d: int, block_size: int) -> None:
-    if block_size <= 0 or block_size % 32:
-        raise ValueError(f"block_size={block_size}: the CUDA kernel packs "
-                         "one warp ballot per 32 elements, so it takes "
-                         "block sizes that are multiples of 32")
+    """The reference's contract: a positive multiple of 8 (whole packed
+    bytes per block) that divides ``d``."""
+    if block_size <= 0 or block_size % 8:
+        raise ValueError(f"block_size={block_size} must be a positive "
+                         "multiple of 8")
     if d % block_size:
         raise ValueError(f"length {d} is not a multiple of "
                          f"block_size={block_size}")
@@ -80,13 +81,8 @@ def decompress(packed: torch.Tensor, scales: torch.Tensor,
             or not packed.is_contiguous():
         raise ValueError("packed: expected contiguous uint8 (d/8,), got "
                          f"{packed.dtype} {tuple(packed.shape)}")
-    if block_size <= 0 or block_size % 8:
-        raise ValueError(f"block_size={block_size} must be a positive "
-                         "multiple of 8")
     d = packed.shape[0] * 8
-    if d % block_size:
-        raise ValueError(f"length {d} is not a multiple of "
-                         f"block_size={block_size}")
+    _check_block(d, block_size)
     _check_f32("scales", scales, d // block_size)
     lib = build.load()
     out = torch.empty(d, dtype=torch.float32, device=packed.device)

@@ -1,1 +1,3 @@
-"""The BERT encoder (slice 1) as an nn.Module over a flat parameter vector."""
+"""The transformer at tp=1: the BERT encoder (slice 1, training over a flat
+parameter vector) and the dense decoders (slice 2, prefill and KV-cached
+decode)."""

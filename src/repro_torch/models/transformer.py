@@ -1,4 +1,6 @@
-"""The BERT encoder: parameter layout, init, the module and the loss.
+"""The transformer: parameter layout, init, the training module and loss
+(the BERT encoder, slice 1), and the serving forward passes of the dense
+decoders (``prefill``, ``init_caches``, ``decode_step``; slice 2).
 
 Parameters keep the reference's shapes and order: ``(d_in, d_out)``
 weights, the per-layer leaves stacked on a leading layer axis under
@@ -15,11 +17,17 @@ elements.
 model.  :meth:`Transformer.bind_grads` points every parameter's ``.grad``
 at the matching view of a flat gradient buffer, into which autograd then
 accumulates in place: the backward pass writes the flat gradient directly.
+
+The serving functions take the params as the dict from dotted path to
+tensor (``init_params``, ``convert.params_from_jax``) with the layers
+stacked on the leading axis, and return the decode caches stacked the same
+way, ``{"l0": {"k", "v"}}`` of shape (L, B, S_c, Hkv, hd), as the
+reference's ``prefill`` / ``decode_step`` do.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,17 +35,22 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
 from repro_torch.models.attention import attn_forward
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import dense, rms_norm
 from repro_torch.models.mlp import mlp_forward
 
 Shapes = List[Tuple[str, Tuple[int, ...]]]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family != "encoder":
+    if cfg.family not in ("encoder", "dense"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(slice 1 is the BERT encoder)")
+                                  "(the port has the BERT encoder and the "
+                                  "dense decoders)")
+    if cfg.embed_kind != "tokens":
+        raise NotImplementedError(f"embed_kind {cfg.embed_kind!r} is not "
+                                  "ported yet")
 
 
 def leaf_shapes(cfg: ArchConfig) -> Shapes:
@@ -47,12 +60,15 @@ def leaf_shapes(cfg: ArchConfig) -> Shapes:
     hd = cfg.head_dim
     q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     vp = cfg.padded_vocab(1)
+    ffn = {"wg": (L, d, ff), "wd": (L, ff, d)}
+    if cfg.mlp_kind == "swiglu":
+        ffn["wu"] = (L, d, ff)
     tree = {
         "blocks": {"l0": {
             "norm1": (L, d), "norm2": (L, d),
             "mixer": {"wq": (L, d, q), "wk": (L, d, kv), "wv": (L, d, kv),
                       "wo": (L, q, d)},
-            "ffn": {"wg": (L, d, ff), "wd": (L, ff, d)},
+            "ffn": ffn,
         }},
         "norm_f": (d,), "w_out": (d, vp), "embed": (vp, d),
     }
@@ -91,8 +107,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return params
 
 
+def _sub(views: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """The entries of ``views`` under ``prefix``, with it stripped."""
+    return {p[len(prefix):]: v for p, v in views.items()
+            if p.startswith(prefix)}
+
+
 class Block(nn.Module):
-    """One pre-norm residual encoder layer."""
+    """One pre-norm residual layer."""
 
     def __init__(self, cfg: ArchConfig, views: Dict[str, torch.Tensor]):
         super().__init__()
@@ -100,10 +122,9 @@ class Block(nn.Module):
         self.norm1 = nn.Parameter(views["norm1"])
         self.norm2 = nn.Parameter(views["norm2"])
         self.mixer = nn.ParameterDict(
-            {k: nn.Parameter(views["mixer." + k])
-             for k in ("wq", "wk", "wv", "wo")})
+            {k: nn.Parameter(t) for k, t in _sub(views, "mixer.").items()})
         self.ffn = nn.ParameterDict(
-            {k: nn.Parameter(views["ffn." + k]) for k in ("wg", "wd")})
+            {k: nn.Parameter(t) for k, t in _sub(views, "ffn.").items()})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         eps = self.cfg.norm_eps
@@ -130,8 +151,7 @@ class Transformer(nn.Module):
             n = math.prod(shape)
             views[path] = flat[off:off + n].view(shape)
             off += n
-        per_layer = [{p[len("blocks.l0."):]: v[i] for p, v in views.items()
-                      if p.startswith("blocks.l0.")}
+        per_layer = [{p: v[i] for p, v in _sub(views, "blocks.l0.").items()}
                      for i in range(cfg.n_layers)]
         self.blocks = nn.ModuleList(Block(cfg, lv) for lv in per_layer)
         self.embed = nn.Parameter(views["embed"])
@@ -193,3 +213,96 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
     loss, acc = vocab_parallel_xent(h, model.w_out, labels, mask, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss, {"loss": loss, "aux": zero, "acc": acc}
+
+
+# --------------------------------------------------------------------------
+# serving: prefill and KV-cached decode
+# --------------------------------------------------------------------------
+
+Params = Dict[str, torch.Tensor]
+
+
+def _layers(params: Params, cfg: ArchConfig) -> List[Dict[str, Any]]:
+    """Per-layer views of the stacked block params:
+    ``[{"norm1", "norm2", "mixer": {...}, "ffn": {...}}, ...]``."""
+    blocks = _sub(params, "blocks.l0.")
+    return [{"norm1": blocks["norm1"][i], "norm2": blocks["norm2"][i],
+             "mixer": {k: t[i] for k, t in _sub(blocks, "mixer.").items()},
+             "ffn": {k: t[i] for k, t in _sub(blocks, "ffn.").items()}}
+            for i in range(cfg.n_layers)]
+
+
+def check_serving(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is an arch the serving path takes."""
+    _check_supported(cfg)
+    if cfg.family == "encoder":
+        raise ValueError("encoder-only archs do not decode")
+
+
+def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+    """Prefill forward: last-position logits (B, V_pad) in the compute
+    dtype and the decode caches seeded from the sequence.
+
+    ``cache_len``: total KV-cache capacity (>= prompt length) so decode
+    steps have slots to append into; a windowed arch whose prompt is
+    longer than the window gets a ring buffer of the window instead, as
+    in the reference."""
+    check_serving(cfg)
+    dtype = getattr(torch, cfg.compute_dtype)
+    tokens = batch["tokens"]
+    h = F.embedding(tokens.long(), params["embed"]).to(dtype)
+    b, s = tokens.shape
+    if cfg.window and s > cfg.window:
+        s_c = cfg.window
+    else:
+        s_c = max(s, cache_len or 0)
+    shape = (cfg.n_layers, b, s_c, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=h.device),
+             "v": torch.zeros(shape, dtype=dtype, device=h.device)}
+    eps = cfg.norm_eps
+    for i, p in enumerate(_layers(params, cfg)):
+        y, (k, v) = attn_forward(p["mixer"], rms_norm(h, p["norm1"], eps),
+                                 cfg, return_kv=True)
+        if cfg.window and s > cfg.window:
+            slots = torch.arange(s - s_c, s, device=h.device) % s_c
+            cache["k"][i][:, slots] = k[:, s - s_c:]
+            cache["v"][i][:, slots] = v[:, s - s_c:]
+        else:
+            cache["k"][i][:, :s] = k
+            cache["v"][i][:, :s] = v
+        h = h + y
+        h = h + mlp_forward(p["ffn"], rms_norm(h, p["norm2"], eps), cfg)
+    h = rms_norm(h, params["norm_f"], eps)
+    logits = dense(h[:, -1, :], params["w_out"])
+    return logits, {"l0": cache}
+
+
+def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
+                dtype=torch.bfloat16, device="cpu") -> Any:
+    """Zero decode caches, stacked over the layers."""
+    one = A.init_kv_cache(cfg, batch, seq_len, dtype, device)
+    return {"l0": {k: t[None].repeat(cfg.n_layers, *([1] * t.ndim))
+                   for k, t in one.items()}}
+
+
+def decode_step(params: Params, batch: Dict[str, torch.Tensor], caches: Any,
+                pos: int, cfg: ArchConfig) -> Tuple[torch.Tensor, Any]:
+    """One decode step: one new token per sequence against the caches.
+
+    batch: {"tokens": (B, 1)}; ``pos`` is the new token's absolute
+    position.  Updates ``caches`` in place and returns (logits (B, V_pad),
+    caches)."""
+    check_serving(cfg)
+    dtype = getattr(torch, cfg.compute_dtype)
+    h = F.embedding(batch["tokens"].long(), params["embed"]).to(dtype)
+    cache = caches["l0"]
+    eps = cfg.norm_eps
+    for i, p in enumerate(_layers(params, cfg)):
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        h = h + A.decode_attn(p["mixer"], rms_norm(h, p["norm1"], eps),
+                              layer_cache, pos, cfg)
+        h = h + mlp_forward(p["ffn"], rms_norm(h, p["norm2"], eps), cfg)
+    h = rms_norm(h, params["norm_f"], eps)
+    logits = dense(h[:, -1, :], params["w_out"])
+    return logits, caches

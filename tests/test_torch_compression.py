@@ -151,8 +151,15 @@ def test_devices_without_a_path_raise():
 
 @pytest.mark.parametrize("block", [8, 40, 520])
 def test_kernel_rejects_blocks_off_the_warp(block):
-    """The CUDA kernel packs one ballot per 32 elements; other multiples
-    of 8 are refused before any launch."""
+    """Blocks that are not multiples of the 32-element warp are the
+    reference's too: the CUDA wrapper's block checks take every multiple
+    of 8 that divides d (a CPU tensor then stops at the device check), and
+    refuse, before any launch, only what the reference refuses."""
     x = torch.zeros(block * 4)
-    with pytest.raises(ValueError, match="multiples of 32"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         tkernel.ef_compress_fused(x, x, block)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tkernel.ef_compress_fused(x, x, block + 4)
+    y = torch.zeros(block * 4 + block // 2)
+    with pytest.raises(ValueError, match="not a multiple"):
+        tkernel.ef_compress_fused(y, y, block)

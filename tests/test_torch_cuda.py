@@ -8,7 +8,9 @@ the port only, so it runs on a machine without JAX:
 
 Tolerances: packed sign bits and decompress bitwise; scales rtol 1e-6 and
 new_err rtol 1e-5 / atol 1e-6 (the block sum runs in another order than
-torch's mean); Adam rtol 1e-5 / atol 5e-7 (tests/test_kernels.py's).
+torch's mean); Adam rtol 1e-5 / atol 5e-7 (tests/test_kernels.py's);
+flash attention f32 rtol 1e-5 / atol 2e-6 and bf16 rtol 2e-2 / atol 2e-2
+(tests/test_kernels.py's; the online softmax sums in another order).
 """
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.fused_adam import kernel as adam_kernel  # noqa: E402
 from repro_torch.kernels.fused_adam import ref as adam_ref  # noqa: E402
+from repro_torch.kernels.flash_attn import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attn import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.onebit import kernel as onebit_kernel  # noqa: E402
 from repro_torch.kernels.onebit import ref as onebit_ref  # noqa: E402
 
@@ -36,7 +40,7 @@ def _randn(card, seed, n, scale=1.0):
     return torch.randn(n, generator=gen, device=card) * scale
 
 
-@pytest.mark.parametrize("block", [256, 512, 4096])
+@pytest.mark.parametrize("block", [8, 24, 40, 256, 512, 520, 4096])
 def test_onebit_kernels_match_plain(card, block):
     x, err = _randn(card, 0, 64 * block), _randn(card, 1, 64 * block, 0.1)
     # +0.0 and -0.0 (buf = -0.0 + -0.0) both pack as 1
@@ -87,8 +91,34 @@ def test_small_run_on_card_matches_cpu(card):
               seq=32, block_size=512, lr=2e-3, lr_warmup=2, verbose=False)
     on_card = run(device="cuda", **kw)
     assert on_card["launches"] == {"adam_step": 2, "ef_compress": 4,
-                                   "decompress": 4}
+                                   "decompress": 4, "flash_attention": 0}
     cpu = run(device="cpu", **kw)
     np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
                                [h["loss"] for h in cpu["history"]],
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape,dtype,causal,window", [
+    ((1, 2, 256, 64), torch.float32, True, None),
+    ((1, 2, 192, 128), torch.float32, False, None),
+    ((1, 2, 256, 32), torch.float32, True, 64),
+    ((2, 3, 320, 128), torch.bfloat16, True, None),
+])
+def test_flash_kernel_matches_plain(card, shape, dtype, causal, window):
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    before = build.launch_counts()["flash_attention"]
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa_ref.sdpa(q, k, v, causal=causal, window=window)
+    assert build.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    tol = (dict(rtol=1e-5, atol=2e-6) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_kernel_refuses_other_head_dims(card):
+    q = torch.zeros(1, 1, 64, 48, device=card)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa_kernel.flash_attention(q, q, q)

@@ -92,10 +92,11 @@ def test_flat_order_is_ravel_pytree(seed):
 
 
 @pytest.mark.parametrize("arch", ["bert-large", "bert-large-smoke",
-                                  "bert-base"])
+                                  "bert-base", "llama3.2-3b"])
 def test_layout_matches_reference(arch):
     """Leaf paths, shapes and the padded flat length, without allocating
-    (bert-large: d = 364,561,408, d_pad = 364,564,480 at block 4096)."""
+    (bert-large: d = 364,561,408, d_pad = 364,564,480 at block 4096;
+    llama3.2-3b: d = 3,606,752,256)."""
     jcfg = jget_config(arch)
     shapes = jax.eval_shape(lambda k: JT.init_params(jcfg, k, tp=1),
                             jax.ShapeDtypeStruct((2,), jnp.uint32))
@@ -109,6 +110,8 @@ def test_layout_matches_reference(arch):
     if arch == "bert-large":
         assert TT.flat_size(cfg) == 364_561_408
         assert flat_dim(cfg, 1, 4096) == 364_564_480
+    if arch == "llama3.2-3b":
+        assert TT.flat_size(cfg) == 3_606_752_256
 
 
 def test_init_matches_reference_distributions():

@@ -130,8 +130,8 @@ def _run_child(code: str) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Importing the port and running it on the CPU loads no JAX and
-    nothing of the ``repro`` package."""
+    """Importing the port and running it on the CPU (training, and the
+    serving engine) loads no JAX and nothing of the ``repro`` package."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.launch.train as L\n"
@@ -141,7 +141,18 @@ def test_port_imports_neither_jax_nor_reference():
         "assert [h['stage'] for h in r['history']] == "
         "['warmup', 'warmup', 'compressed']\n"
         "assert r['launches'] == {'ef_compress': 0, 'decompress': 0,"
-        " 'adam_step': 0}, r['launches']\n"
+        " 'adam_step': 0, 'flash_attention': 0}, r['launches']\n"
+        "import dataclasses, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.transformer import init_params\n"
+        "from repro_torch.serve import GenerationConfig, ServeEngine\n"
+        "cfg = dataclasses.replace(get_config('llama3.2-3b-smoke'),"
+        " attn_impl='pallas')\n"
+        "eng = ServeEngine(cfg, init_params(cfg,"
+        " torch.Generator().manual_seed(0)), device='cpu')\n"
+        "g = eng.generate(torch.zeros(2, 16, dtype=torch.int32),"
+        " GenerationConfig(max_new_tokens=3))\n"
+        "assert tuple(g['tokens'].shape) == (2, 3), g\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
