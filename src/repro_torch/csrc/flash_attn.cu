@@ -2,10 +2,14 @@
 //
 // Replaces the TPU kernel in src/repro/kernels/flash_attn/kernel.py:
 //   flash_attention (body _flash_kernel) -> repro_flash_attention
+// for f32 inputs (the wrapper routes bf16 and fp16 to the tensor-core
+// kernel of flash_attn_sm90.cu; this one still takes bf16, for timing).
 //
 // It computes what _flash_kernel computes, on q/k/v of shape (B*H, S, D),
 // f32 or bf16:
-//   * q, k and v are upcast to f32 and q is divided by sqrt(D) before QK^T;
+//   * q, k and v are upcast to f32 and q is divided by sqrt(d_scale) before
+//     QK^T, where d_scale is the true head dim (the wrapper zero-pads q, k
+//     and v to the next instantiated D, which leaves q.k unchanged);
 //   * scores, p = exp(s - m) and p @ v stay in f32 (p is never rounded to
 //     bf16), with the running max m, normaliser l and accumulator o in f32;
 //   * masked scores are -1e30 (causal: col > row; sliding window:
@@ -36,7 +40,8 @@
 //     (late queries) are scheduled first;
 //   * the CTA's q tile (already divided by sqrt(D)) and each 64-row k and v
 //     tile are staged in dynamic shared memory as f32 (~98 KB at D = 128,
-//     two CTAs per SM); the p tile reuses the k tile's space;
+//     two CTAs per SM; ~194 KB at D = 256, one); the p tile reuses the k
+//     tile's space;
 //   * thread (ty, tx) = (tid / 16, tid % 16) owns query rows 4ty..4ty+3: the
 //     score micro-tile at key columns tx + 16j (j < 4) and the output
 //     columns of its 16-lane slice of D; row max and row sum reduce over the
@@ -79,13 +84,12 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
 static_assert(kBQ == kBK, "stage_tile stages q and kv tiles alike");
 
 // Rows [row0, row0 + 64) of one (S, D) head -> f32 shared tile with row
-// stride ld (divided by sqrt(D) when kScale); rows at or past S are zero.
+// stride ld (divided by sqrt_d when kScale); rows at or past S are zero.
 template <int D, bool kScale, typename T>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ head,
                                            int64_t row0, int64_t s_len,
-                                           float* tile, int ld) {
+                                           float* tile, int ld, float sqrt_d) {
   constexpr int kChunks = D / 4;
-  const float sqrt_d = sqrtf(static_cast<float>(D));
   for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 4;
@@ -113,7 +117,7 @@ template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int64_t s_len,
-                 int n_qt, int causal, int64_t window) {
+                 int n_qt, float sqrt_d, int causal, int64_t window) {
   constexpr int LDQ = D + kPad;
   constexpr int VEC = D / 16 < 4 ? D / 16 : 4;   // output columns per chunk
   constexpr int NCH = D / (16 * VEC);            // chunks per thread
@@ -131,7 +135,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q0 = static_cast<int64_t>(qt) * kBQ;
   const int64_t head = bh * s_len * D;
 
-  stage_tile<D, true>(q + head, q0, s_len, qs, LDQ);
+  stage_tile<D, true>(q + head, q0, s_len, qs, LDQ, sqrt_d);
 
   // kv tile range, as _flash_kernel's fori_loop bounds
   const int64_t n_kt = (s_len + kBK - 1) / kBK;
@@ -155,8 +159,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int64_t kt = kt_begin; kt < kt_end; ++kt) {
     const int64_t k0 = kt * kBK;
     __syncthreads();   // the previous tile's p and v are consumed
-    stage_tile<D, false>(k + head, k0, s_len, ks, LDQ);
-    stage_tile<D, false>(v + head, k0, s_len, vs, D);
+    stage_tile<D, false>(k + head, k0, s_len, ks, LDQ, 1.f);
+    stage_tile<D, false>(v + head, k0, s_len, vs, D, 1.f);
     __syncthreads();
 
     // s = (q / sqrt(D)) k^T on the 4 x 4 micro-tile
@@ -270,8 +274,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t bh, int64_t s_len, int causal, int64_t window,
-                   cudaStream_t stream) {
+                   int64_t bh, int64_t s_len, int64_t d_scale, int causal,
+                   int64_t window, cudaStream_t stream) {
   constexpr int kSmem = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto kernel = flash_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -283,19 +287,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<static_cast<unsigned>(n_ctas), kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s_len,
-      static_cast<int>(n_qt), causal, window);
+      static_cast<int>(n_qt), sqrtf(static_cast<float>(d_scale)), causal,
+      window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int64_t bh, int64_t s_len, int64_t d, int causal,
-                       int64_t window, cudaStream_t stream) {
+                       int64_t bh, int64_t s_len, int64_t d, int64_t d_scale,
+                       int causal, int64_t window, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<32, T>(q, k, v, o, bh, s_len, causal, window, stream);
-    case 64: return launch<64, T>(q, k, v, o, bh, s_len, causal, window, stream);
-    case 128: return launch<128, T>(q, k, v, o, bh, s_len, causal, window, stream);
-    default: return cudaErrorInvalidValue;
+    case 32:
+      return launch<32, T>(q, k, v, o, bh, s_len, d_scale, causal, window,
+                           stream);
+    case 64:
+      return launch<64, T>(q, k, v, o, bh, s_len, d_scale, causal, window,
+                           stream);
+    case 128:
+      return launch<128, T>(q, k, v, o, bh, s_len, d_scale, causal, window,
+                            stream);
+    case 256:
+      return launch<256, T>(q, k, v, o, bh, s_len, d_scale, causal, window,
+                            stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -304,19 +319,21 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q, k, v, o: (bh, s_len, d) contiguous, 16-byte aligned; dtype 0 = f32,
-// 1 = bf16; d in {32, 64, 128}; window <= 0 means no sliding window.
+// 1 = bf16; d in {32, 64, 128, 256} (the wrapper zero-pads other head
+// dims); d_scale is the true head dim; window <= 0 means no sliding window.
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int64_t bh, int64_t s_len, int64_t d,
-                          int dtype, int causal, int64_t window,
-                          void* stream) {
+                          int64_t d_scale, int dtype, int causal,
+                          int64_t window, void* stream) {
   if (bh <= 0 || s_len <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(q, k, v, o, bh, s_len, d, causal, window, st);
+    err = dispatch_d<float>(q, k, v, o, bh, s_len, d, d_scale, causal, window,
+                            st);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(q, k, v, o, bh, s_len, d, causal, window,
-                                    st);
+    err = dispatch_d<__nv_bfloat16>(q, k, v, o, bh, s_len, d, d_scale, causal,
+                                    window, st);
   } else {
     err = cudaErrorInvalidValue;
   }

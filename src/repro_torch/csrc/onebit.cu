@@ -25,9 +25,7 @@
 //     past the block: lanes 0-3 each store one byte of the mask (one
 //     coalesced 4-byte store instruction per warp), and only the bytes that
 //     lie inside the block.
-//   * decompress gives each thread one packed byte and writes its 8 floats
-//     as two float4 stores; the value is bit ? s : -s, which is bitwise the
-//     reference's signs * scale.
+//   * decompress: see the note above decompress_kernel.
 //   * Kernels launch on the caller's stream, allocate nothing and never
 //     synchronise; each entry point returns cudaGetLastError().
 #include <cstdint>
@@ -92,21 +90,69 @@ ef_compress_kernel(const float* __restrict__ x, const float* __restrict__ err,
   }
 }
 
+// decompress_kernel replaces _decompress_kernel
+// (src/repro/kernels/onebit/kernel.py:95, decompress).
+//
+// What bounds it: device-memory bytes. It reads 1/8 byte and writes 4
+// bytes per element (plus one scale per block): 1.46 GB of stores at the
+// main path's d_pad = 364,564,480, a 0.449 ms floor at 3.35 TB/s. The
+// stores are all that matters.
+//
+// What the design does about it: every warp store instruction writes 512
+// contiguous bytes. A warp takes chunks of 1024 elements (128 packed
+// bytes): lane l loads packed word l of the chunk (one coalesced 4-byte
+// load), then in 8 rounds r writes float4 32r + l of the chunk (elements
+// 128r + 4l .. + 3, nibble l % 8 of word 4r + l / 8, which it takes from
+// lane 4r + l / 8 with __shfl_sync). Each lane has 8 independent
+// streaming stores (__stcs: the output does not fit in L2) in flight per
+// load; loading 2 or 4 chunks ahead measured no faster. A float4 never
+// straddles a scale block (block % 8 == 0), so one scale serves all four
+// values; the block index comes from the chunk's first element and two
+// compares (a division only for blocks under 1024 elements). The value is
+// bit ? s : -s, bitwise the reference's signs * scale. An unaligned
+// payload (aligned4 == 0) and the ragged last chunk load byte by byte.
 __global__ void __launch_bounds__(kThreads)
 decompress_kernel(const uint8_t* __restrict__ packed,
                   const float* __restrict__ scales, float* __restrict__ out,
-                  int64_t n_bytes, int64_t block_size) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       j < n_bytes; j += stride) {
-    const uint32_t byte = packed[j];
-    const float s = scales[(j * 8) / block_size];
-    float v[8];
+                  int64_t n_bytes, int64_t block_size, int aligned4) {
+  constexpr int kChunkBytes = 128;                 // 32 lanes x 4 bytes
+  const int lane = threadIdx.x & 31;
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  const int64_t n_chunks = (n_bytes + kChunkBytes - 1) / kChunkBytes;
+  const int64_t d = n_bytes * 8;
+  for (int64_t c = (static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x) / 32;
+       c < n_chunks; c += n_warps) {
+    const int64_t b0 = c * kChunkBytes + 4 * lane;
+    uint32_t word = 0;
+    if (aligned4 && b0 + 4 <= n_bytes) {
+      word = __ldcs(reinterpret_cast<const unsigned int*>(packed + b0));
+    } else {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = ((byte >> k) & 1u) ? s : -s;
-    float4* o = reinterpret_cast<float4*>(out + j * 8);
-    o[0] = make_float4(v[0], v[1], v[2], v[3]);
-    o[1] = make_float4(v[4], v[5], v[6], v[7]);
+      for (int k = 0; k < 4; ++k) {
+        if (b0 + k < n_bytes) {
+          word |= static_cast<uint32_t>(packed[b0 + k]) << (8 * k);
+        }
+      }
+    }
+    const int64_t e0 = c * kChunkBytes * 8;        // the chunk's first element
+    const int64_t blk0 = e0 / block_size;
+    const int64_t rem0 = e0 - blk0 * block_size;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const uint32_t w = __shfl_sync(0xffffffffu, word, 4 * r + lane / 8);
+      const uint32_t nib = (w >> (4 * (lane % 8))) & 0xFu;
+      const int64_t o = 128 * r + 4 * lane;
+      if (e0 + o < d) {
+        const int64_t t = rem0 + o;
+        const int64_t blk = t < block_size ? 0
+                            : t < 2 * block_size ? 1 : t / block_size;
+        const float s = __ldg(scales + blk0 + blk);
+        __stcs(reinterpret_cast<float4*>(out + e0 + o),
+               make_float4((nib & 1u) ? s : -s, (nib & 2u) ? s : -s,
+                           (nib & 4u) ? s : -s, (nib & 8u) ? s : -s));
+      }
+    }
   }
 }
 
@@ -143,10 +189,12 @@ int repro_decompress(const void* packed, const void* scales, void* out,
                      int64_t d, int64_t block_size, void* stream) {
   const int64_t n_bytes = d / 8;
   if (n_bytes > 0) {
-    decompress_kernel<<<grid_for(n_bytes), kThreads, 0,
+    // one warp per 128 packed bytes
+    decompress_kernel<<<grid_for((n_bytes + 3) / 4), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
-        static_cast<float*>(out), n_bytes, block_size);
+        static_cast<float*>(out), n_bytes, block_size,
+        reinterpret_cast<uintptr_t>(packed) % 4 == 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

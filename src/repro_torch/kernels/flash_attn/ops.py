@@ -2,10 +2,11 @@
 
 As ``repro/kernels/flash_attn/ops.py``: block sizes ``bq``/``bk`` default
 to 256 and are clamped to S, and S must be a multiple of both (the
-reference asserts; here ``ValueError``).  A CUDA tensor takes the Hopper
-kernel (``kernel.py``, whose own 64 x 64 tiles only change the order of
-the f32 sums), which raises on what it does not take; a CPU tensor takes
-the plain version (``ref.py``).  Any other device raises.
+reference asserts; here ``ValueError``).  A CUDA tensor takes a Hopper
+kernel (``kernel.py``: bf16 and fp16 the tensor-core kernel, f32 the exact
+SIMT kernel; their own tiles only change the order of the f32 sums), which
+raises on what it does not take; a CPU tensor takes the plain version
+(``ref.py``).  Any other device raises.
 """
 from __future__ import annotations
 

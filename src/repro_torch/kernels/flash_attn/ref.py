@@ -17,9 +17,12 @@ NEG_INF = -1e30
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """q/k/v: (B, H, S, D) -> (B, H, S, D) in q's dtype."""
-    d = q.shape[-1]
+         causal: bool = True, window: Optional[int] = None,
+         head_dim: Optional[int] = None) -> torch.Tensor:
+    """q/k/v: (B, H, S, D) -> (B, H, S, D) in q's dtype.  The scores are
+    divided by sqrt(head_dim), D by default (a zero-padded input passes
+    its true D)."""
+    d = head_dim or q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) / (d ** 0.5)
     sq, sk = q.shape[2], k.shape[2]

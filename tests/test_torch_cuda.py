@@ -9,8 +9,11 @@ the port only, so it runs on a machine without JAX:
 Tolerances: packed sign bits and decompress bitwise; scales rtol 1e-6 and
 new_err rtol 1e-5 / atol 1e-6 (the block sum runs in another order than
 torch's mean); Adam rtol 1e-5 / atol 5e-7 (tests/test_kernels.py's);
-flash attention f32 rtol 1e-5 / atol 2e-6 and bf16 rtol 2e-2 / atol 2e-2
-(tests/test_kernels.py's; the online softmax sums in another order).
+flash attention f32 rtol 1e-5 / atol 2e-6 (tests/test_kernels.py's; the
+online softmax sums in another order), bf16 and fp16 rtol 2e-2 (that
+file's bf16 rtol) / atol 5e-3 (the tensor-core kernel rounds p to the
+input dtype before p v; chip_smoke.py reads the least atol that passes,
+at most 2.9e-3).
 """
 import numpy as np
 import pytest
@@ -58,6 +61,24 @@ def test_onebit_kernels_match_plain(card, block):
     assert after["decompress"] == before["decompress"] + 1
 
 
+@pytest.mark.parametrize("block,n_blocks,offset", [
+    (8, 129, 0), (8, 129, 1), (24, 43, 0), (40, 25, 3), (520, 3, 0),
+    (4096, 3, 1)])
+def test_decompress_bitwise_at_ragged_lengths(card, block, n_blocks, offset):
+    """d = block * n_blocks is not a multiple of one warp's 1024-element
+    chunk (except at 4096); a payload at a byte offset takes the unaligned
+    loads."""
+    d = block * n_blocks
+    x, err = _randn(card, 5, d), _randn(card, 6, d, 0.1)
+    pk, sc, _ = onebit_ref.ef_compress_fused(x, err, block)
+    buf = torch.zeros(pk.numel() + offset, dtype=torch.uint8, device=card)
+    buf[offset:] = pk
+    before = build.launch_counts()["decompress"]
+    got = onebit_kernel.decompress(buf[offset:], sc, block)
+    assert build.launch_counts()["decompress"] == before + 1
+    assert torch.equal(got, onebit_ref.decompress(pk, sc, block))
+
+
 def test_onebit_kernel_packs_nan_as_zero(card):
     """buf >= 0 is false for NaN: its sign bit packs 0, as in the plain
     version and the reference."""
@@ -91,11 +112,31 @@ def test_small_run_on_card_matches_cpu(card):
               seq=32, block_size=512, lr=2e-3, lr_warmup=2, verbose=False)
     on_card = run(device="cuda", **kw)
     assert on_card["launches"] == {"adam_step": 2, "ef_compress": 4,
-                                   "decompress": 4, "flash_attention": 0}
+                                   "decompress": 4, "flash_attention": 0,
+                                   "flash_attention_wgmma": 0}
     cpu = run(device="cpu", **kw)
     np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
                                [h["loss"] for h in cpu["history"]],
                                rtol=1e-3)
+
+
+def _flash_case(card, shape, dtype, causal, window, fn=None):
+    """The kernel's output, the plain version's, and which counter moved."""
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    before = build.launch_counts()
+    got = (fn or fa_kernel.flash_attention)(q, k, v, causal=causal,
+                                            window=window)
+    want = fa_ref.sdpa(q, k, v, causal=causal, window=window)
+    after = build.launch_counts()
+    moved = {n for n in after if after[n] != before[n]}
+    assert all(after[n] == before[n] + 1 for n in moved)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = (dict(rtol=1e-5, atol=2e-6) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=5e-3))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    return moved
 
 
 @pytest.mark.parametrize("shape,dtype,causal,window", [
@@ -105,20 +146,42 @@ def test_small_run_on_card_matches_cpu(card):
     ((2, 3, 320, 128), torch.bfloat16, True, None),
 ])
 def test_flash_kernel_matches_plain(card, shape, dtype, causal, window):
-    gen = torch.Generator(device=card).manual_seed(sum(shape))
-    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
-               for _ in range(3))
-    before = build.launch_counts()["flash_attention"]
-    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
-    want = fa_ref.sdpa(q, k, v, causal=causal, window=window)
-    assert build.launch_counts()["flash_attention"] == before + 1
-    assert got.dtype == dtype
-    tol = (dict(rtol=1e-5, atol=2e-6) if dtype == torch.float32
-           else dict(rtol=2e-2, atol=2e-2))
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    """Each dtype takes its route: f32 the SIMT kernel, bf16 the
+    tensor-core kernel."""
+    moved = _flash_case(card, shape, dtype, causal, window)
+    assert moved == ({"flash_attention"} if dtype == torch.float32
+                     else {"flash_attention_wgmma"})
 
 
-def test_flash_kernel_refuses_other_head_dims(card):
-    q = torch.zeros(1, 1, 64, 48, device=card)
-    with pytest.raises(ValueError, match="head dim 48"):
+@pytest.mark.parametrize("s", [320, 200])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64), (True, 128)])
+def test_wgmma_flash_matches_plain(card, s, d, dtype, causal, window):
+    """The tensor-core kernel at ragged S (not a multiple of its 128-row
+    tiles), causal and not, sliding windows."""
+    moved = _flash_case(card, (2, 3, s, d), dtype, causal, window)
+    assert moved == {"flash_attention_wgmma"}
+
+
+@pytest.mark.parametrize("d", [1, 48, 80, 96, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_kernel_head_dims(card, d, dtype):
+    """Every D from 1 to 256 is taken (zero-padded to an instance of the
+    dtype's kernel); D = 300 raises."""
+    moved = _flash_case(card, (1, 2, 200, d), dtype, True, None)
+    assert moved == ({"flash_attention"} if dtype == torch.float32
+                     else {"flash_attention_wgmma"})
+    q = torch.zeros(1, 1, 64, 300, device=card, dtype=dtype)
+    with pytest.raises(ValueError, match="head dim 300"):
         fa_kernel.flash_attention(q, q, q)
+
+
+def test_simt_flash_kernel_takes_bf16(card):
+    """The SIMT kernel on bf16 (timed beside the tensor-core kernel) is
+    counted as its own route."""
+    moved = _flash_case(card, (1, 2, 320, 128), torch.bfloat16, True, None,
+                        fa_kernel.flash_attention_simt)
+    assert moved == {"flash_attention"}

@@ -159,7 +159,8 @@ def test_cpu_generate_launches_no_kernel(params):
         torch.from_numpy(_prompts(5, 1, 16)),
         GenerationConfig(max_new_tokens=2))
     assert build.launch_counts() == {"ef_compress": 0, "decompress": 0,
-                                     "adam_step": 0, "flash_attention": 0}
+                                     "adam_step": 0, "flash_attention": 0,
+                                     "flash_attention_wgmma": 0}
 
 
 def test_chunked_prefill_is_not_ported(params):

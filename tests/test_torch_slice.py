@@ -141,7 +141,8 @@ def test_port_imports_neither_jax_nor_reference():
         "assert [h['stage'] for h in r['history']] == "
         "['warmup', 'warmup', 'compressed']\n"
         "assert r['launches'] == {'ef_compress': 0, 'decompress': 0,"
-        " 'adam_step': 0, 'flash_attention': 0}, r['launches']\n"
+        " 'adam_step': 0, 'flash_attention': 0,"
+        " 'flash_attention_wgmma': 0}, r['launches']\n"
         "import dataclasses, torch\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models.transformer import init_params\n"
