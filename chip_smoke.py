@@ -22,12 +22,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   6. profile — one more warmup-stage and compressed-stage step on the
                main path's model under torch.profiler: device time by
                kernel group and the device's idle share (measurement only).
+  6b. family — the optimizer family at full BERT-Large width and depth
+               (batch 16 x seq 128, block 4096, seed 0): first
+               ``bert-large-smoke`` on the card and on the CPU under
+               ``onebit_lamb`` and ``zerone_adam_local`` (losses agree);
+               then five runs, launch counts set to 0 before and checked
+               after each: 1-bit LAMB (3 + 3 steps), 0/1 Adam under the
+               local layout through ``train_step`` (3 + 5 steps with 0-bit
+               steps and ``v`` refreshes), 1-bit Adam over top-k (3 + 3),
+               1-bit Adam with ``accum_steps=2`` whose compressed steps
+               run under zero1 (warmup losses held to phase 5's), and a
+               checkpoint resume (4 steps, save, load back bitwise,
+               resume to 6 against uninterrupted runs).
   7. flash   — both flash-attention kernels against their plain version on
                the card: the SIMT kernel (the f32 route) on small f32 shapes
                (S 128/256/512, D 32/64/128, causal and not, windows
                32/64/128); the tensor-core kernel (the bf16/fp16 route) on
                ragged fp16 shapes; head dims 48/80/96/256 (zero-padded) in
-               f32, bf16 and fp16; then the serving shape (8, 24, 2048, 128)
+               f32, bf16 and fp16; head dims 320/512/1000 (the wide SIMT
+               instance) in f32, bf16 and fp16, and one wide case timed;
+               then the serving shape (8, 24, 2048, 128)
                bf16 causal, with CUDA-event times of the tensor-core kernel,
                the SIMT kernel on the same bf16 inputs, the plain version and
                PyTorch's scaled_dot_product_attention (timed only), the
@@ -46,7 +60,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                (measurement only).
 
 Launch counts are set to 0 just before each main path (training in phase
-5, serving in phase 9) and read just after it.  It prints the
+5, each family run in phase 6b, serving in phase 9) and read just after
+it.  It prints the
 ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -55,9 +70,12 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -78,10 +96,37 @@ SMALL = dict(arch="bert-large-smoke", recipe="onebit_adam", steps=5,
 # difference near zero can flip single sign bits of the 1-bit payload
 SMALL_LOSS_RTOL = 1e-3
 EXPECTED_LAUNCHES = {"adam_step": 3, "ef_compress": 6, "decompress": 6,
-                     "flash_attention": 0, "flash_attention_wgmma": 0}
+                     "flash_attention": 0, "flash_attention_wgmma": 0,
+                     "flash_attention_wide": 0}
 # block sizes beside the main path's 4096 that ef_compress must take
 # (multiples of 8 that are not multiples of 32, and one that is)
 SMALL_BLOCKS = (8, 24, 40, 520)
+
+# phase 6b: the optimizer family at the main path's full width and depth
+FAMILY = dict(arch="bert-large", batch=16, seq=128, block_size=4096,
+              seed=0)
+FAMILY_SMALL_RECIPES = ("onebit_lamb", "zerone_adam_local")
+# 0/1 Adam: within 3 + 5 steps, sync at compressed steps 0, 1, 2, 4, a 0-bit
+# step at 3, v refreshed at counts 4, 6 and 8
+ZERONE = dict(var_update_interval=2, sync_double_every=2,
+              sync_max_interval=2)
+ZERONE_STEPS = (3, 5)
+NO_FLASH = {"flash_attention": 0, "flash_attention_wgmma": 0,
+            "flash_attention_wide": 0}
+FAMILY_LAUNCHES = {
+    "onebit_lamb": {"adam_step": 0, "ef_compress": 6, "decompress": 6},
+    "zerone_adam_local": {"adam_step": 3, "ef_compress": 8,
+                          "decompress": 8},
+    "onebit_adam_topk": {"adam_step": 3, "ef_compress": 0, "decompress": 0},
+    "zero1_accum": {"adam_step": 3, "ef_compress": 6, "decompress": 6},
+    # the resumed run: steps 4 and 5, both compressed
+    "resume": {"adam_step": 0, "ef_compress": 4, "decompress": 4},
+}
+# the accumulated run's warmup losses against phase 5's: the microbatch
+# means weight the masked tokens per microbatch, the full batch per token
+# (tests/test_torch_family_slice.py::test_accum_steps_against_full_batch
+# fixes this rtol on the CPU, where it measured up to 3.6e-4)
+ACCUM_LOSS_RTOL = 1e-3
 
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
@@ -100,6 +145,19 @@ SERVE_SMALL_TOL = dict(rtol=1e-4, atol=1e-4)
 # most outputs lie here
 FLASH_BF16_TOL = dict(rtol=2e-2, atol=5e-3)
 FLASH_F32_TOL = dict(rtol=1e-5, atol=2e-6)
+# head dims above 256 in f32: the scores sum up to 1024 products (256 in the
+# other f32 checks), so their rounding, and the outputs', grows with D; an
+# H100 read a max abs err of 4.9e-6 at D = 1000.  16-bit: the wide instance
+# keeps p and the accumulator in f32, as the plain version does, and rounds
+# only the output, so the two differ by at most an output ulp: ulp/|o| is
+# at most 2^-7 (bf16) or 2^-10 (fp16), hence rtol 8e-3 and 1e-3; atol 1e-5
+# covers outputs near zero (fp16 subnormals below 6.1e-5)
+FLASH_WIDE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+                  torch.bfloat16: dict(rtol=8e-3, atol=1e-5),
+                  torch.float16: dict(rtol=1e-3, atol=1e-5)}
+FLASH_WIDE_DIMS = (320, 512, 1000)
+# the wide instance timed on one shape (no configuration has D > 128)
+FLASH_WIDE_TIMED = (2, 8, 1024, 512)
 # at the serving shape the share of outputs bitwise the plain version's
 # must stay above this: a kernel wrong in a minority of rows, where the
 # outputs are small, would pass the tolerance alone
@@ -244,15 +302,58 @@ def phase_kernels(d: int, block: int, seed: int = 0):
     ms = time_ms(lambda: FK.adam_step(xa, m, v, g, 1e-3))
     plain = time_ms(lambda: FR.adam_step(xa, m, v, g, 1e-3, 0.9, 0.999,
                                          1e-8))
+    # the library call: torch's fused AdamW divides by 1 - b^step; at step
+    # 1e9, 0.9^step and 0.999^step are 0 in f32, so both corrections are
+    # exactly 1 and it computes BertAdam (decoupled weight decay, applied
+    # before the Adam term: the same update up to rounding).  It rounds in
+    # another order than the kernel and the plain version (which share
+    # theirs), so each output is held at the kernel's rtol 1e-5 / atol 5e-7
+    # of the size of the terms it is formed from, not of its own: where v
+    # is tiny, x - lr m / sqrt(v) cancels and its rounding is that of the
+    # (large) update.  Then timed in place on copies
+    step_t = torch.full((), 1e9, device=dev)
+
+    def fused_adamw(xc, mc, vc, wd=0.0):
+        torch._fused_adamw_([xc], [g], [mc], [vc], [], [step_t], lr=1e-3,
+                            beta1=0.9, beta2=0.999, weight_decay=wd,
+                            eps=1e-8, amsgrad=False, maximize=False)
+        return xc, mc, vc
+
+    lib_err = 0.0
+    for wd in (0.0, 0.01):
+        got = fused_adamw(xa.clone(), m.clone(), v.clone(), wd)
+        want = FR.adam_step(xa, m, v, g, 1e-3, 0.9, 0.999, 1e-8, wd)
+        m_terms = 0.9 * m.abs() + 0.1 * g.abs()
+        terms = (xa.abs() * (1 + 1e-3 * wd)
+                 + 1e-3 * m_terms / (want[2].sqrt() + 1e-8),
+                 m_terms, 0.999 * v + 0.001 * g * g)
+        for name, a, b, t in zip(("x", "m", "v"), got, want, terms):
+            err = (a - b).abs()
+            n_bad = int((err > 5e-7 + 1e-5 * t).sum())
+            if n_bad:
+                raise AssertionError(
+                    f"torch._fused_adamw_ (wd {wd}): {name} differs from "
+                    f"the plain version in {n_bad} elements beyond rtol "
+                    f"1e-5 of its terms, max abs err {float(err.max())}")
+            lib_err = max(lib_err, float(err.max()))
+            del err
+        del got, want, m_terms, terms
+    copies = (xa.clone(), m.clone(), v.clone())
+    lib = time_ms(lambda: fused_adamw(*copies))
+    del copies
     b_ms, b_by = bound(28 * d, 12 * d)
     entries.append(dict(
         name="adam_step", route="cuda",
         source="src/repro_torch/csrc/fused_adam.cu",
         replaces="src/repro/kernels/fused_adam/kernel.py:44", ok=True,
         max_abs_err=err_max, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, launches_per_step=1))
+        bound_by=b_by, library_ms=lib, library_max_abs_err=lib_err,
+        launches_per_step=1))
     log(f"[kernels] adam_step ok: {ms:.3f} ms (plain {plain:.3f} ms, "
-        f"bound {b_ms:.3f} ms), max abs err {err_max:.3e}")
+        f"bound {b_ms:.3f} ms), max abs err {err_max:.3e}; "
+        f"torch._fused_adamw_ at step 1e9 (bias corrections 1: the same "
+        f"function) {lib:.3f} ms, max abs err against the plain version "
+        f"{lib_err:.3e}")
     del xa, m, v, g
     torch.cuda.empty_cache()
     return entries
@@ -311,6 +412,287 @@ def phase_main():
     return counts, dict(warmup_step_ms=warm_ms, compressed_step_ms=comp_ms,
                         tokens_per_s=tokens / (steady / 1e3),
                         peak_bytes=peak, losses=losses), res["state"]
+
+
+def phase_family_small() -> None:
+    """``bert-large-smoke`` on the card and on the CPU from one seed under
+    the recipes of the family's new layouts: the losses agree as phase 4's
+    do for 1-bit Adam."""
+    from repro_torch.launch.train import run
+    for recipe in FAMILY_SMALL_RECIPES:
+        kw = dict(SMALL, recipe=recipe)
+        card = run(device="cuda", **kw)
+        cpu = run(device="cpu", **kw)
+        if card["layout"] != cpu["layout"]:
+            raise AssertionError(f"{recipe}: layouts {card['layout']} / "
+                                 f"{cpu['layout']}")
+        for a, b in zip(card["history"], cpu["history"]):
+            rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            if (a["stage"], a["sync"]) != (b["stage"], b["sync"]) \
+                    or not math.isfinite(a["loss"]) or rel > SMALL_LOSS_RTOL:
+                raise AssertionError(f"family small {recipe}: step {a} on "
+                                     f"the card vs {b} on the CPU")
+        log(f"[family-small] {recipe} ({card['layout']} layout) card vs cpu "
+            "losses: " + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}" for a, b
+                                   in zip(card["history"], cpu["history"])))
+
+
+def _family_stream():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticStream
+    cfg = get_config(FAMILY["arch"])
+    return cfg, SyntheticStream(
+        cfg, InputShape("family", FAMILY["seq"], FAMILY["batch"], "train"),
+        seed=FAMILY["seed"], device="cuda")
+
+
+def _family_state(optimizer, layout: str = "replicated"):
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.step import init_train_state
+    cfg, stream = _family_stream()
+    params = init_params(cfg, torch.Generator().manual_seed(FAMILY["seed"]),
+                         "cuda")
+    ts = init_train_state(cfg, params, optimizer, FAMILY["block_size"], 1,
+                          "cuda", layout=layout)
+    return ts, stream
+
+
+def _timed_step(ts, optimizer, batch, step, stage, **kw) -> dict:
+    """One train_step with the main path's lr schedule; the step's record
+    (wall ms to the host fetch of its metrics, launches it made)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import lr_schedule
+    from repro_torch.train.step import train_step
+    before = build.launch_counts()
+    t0 = time.perf_counter()
+    m = train_step(ts, optimizer, batch, lr_schedule(step, 1e-3, 20), stage,
+                   **kw)
+    host = {k: float(v) for k, v in m.items()}
+    ms = (time.perf_counter() - t0) * 1e3
+    after = build.launch_counts()
+    return {"step": step, "stage": stage, "sync": kw.get("sync", True),
+            "ms": ms, **host,
+            "launched": {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}}
+
+
+def _family_run(tag: str, fn) -> dict:
+    """Run ``fn`` (-> history) with the launch counts set to 0 just before
+    and read just after; check them, the losses and log every step."""
+    from repro_torch.kernels import build
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = fn()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(FAMILY_LAUNCHES[tag], **NO_FLASH)
+    if counts != want:
+        raise AssertionError(f"family {tag}: launch counts {counts}, "
+                             f"expected {want}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"family {tag}: non-finite losses {hist}")
+    for h in hist:
+        log(f"[family] {tag} step {h['step']} [{h['stage']}"
+            f"{'' if h.get('sync', True) else ' 0-bit'}] loss "
+            f"{h['loss']:.6f} {h['ms']:.1f} ms")
+    log(f"[family] {tag}: peak memory {peak} bytes, launches {counts}, "
+        f"{wall:.1f} s with set-up")
+    return dict(step_ms=[h["ms"] for h in hist],
+                stages=[h["stage"] for h in hist],
+                syncs=[h.get("sync", True) for h in hist],
+                losses=[h["loss"] for h in hist], peak_bytes=peak,
+                launches=counts, wall_s=wall)
+
+
+def _run_hist(**kw):
+    from repro_torch.launch.train import run
+    return run(device="cuda", verbose=False,
+               **{**FAMILY, "steps": 6, "warmup_steps": 3, **kw})
+
+
+def _resume(stats: dict) -> None:
+    """Checkpoint resume of 1-bit LAMB at full width: two uninterrupted
+    6-step runs (their spread), a 4-step run that saves, the bitwise round
+    trip of that checkpoint, and the resumed run to step 6."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flat_from_params, params_from_flat
+    from repro_torch.launch.train import run
+    from repro_torch.models.transformer import leaf_shapes
+    from repro_torch.state import flat_layout, state_bytes
+    from repro_torch.state.checkpoint import load_train_state
+    from repro_torch.train.step import flat_dim, segment_info
+    cfg = get_config(FAMILY["arch"])
+    d_pad = flat_dim(cfg, 1, FAMILY["block_size"])
+    full = _run_hist(recipe="onebit_lamb")
+    slots = full["optimizer"].state_slots(full["layout"])
+    ctx = flat_layout(d_pad, 1, segment_info(cfg, d_pad).n)
+    need = 4 * full["d"] + state_bytes(slots, ctx)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"[family] resume: the checkpoint will take ~{need} bytes; "
+            f"{free} bytes free under {tmp}")
+        if free < 2 * need:
+            raise SystemExit(f"chip_smoke: {free} bytes free under {tmp}, "
+                             f"less than twice the {need}-byte checkpoint")
+        path = os.path.join(tmp, "lamb.npz")
+        second = _run_hist(recipe="onebit_lamb")
+        a, b = full["state"], second["state"]
+        same = torch.equal(a.x, b.x) and all(
+            torch.equal(a.opt[k], b.opt[k]) for k in a.opt) and \
+            [h["loss"] for h in full["history"]] == \
+            [h["loss"] for h in second["history"]]
+        spread_x = float((a.x - b.x).abs().max())
+        spread_loss = max(abs(p["loss"] - q["loss"]) / abs(p["loss"]) for
+                          p, q in zip(full["history"], second["history"]))
+        del second, b
+        culprit = []
+        if not same:
+            # name the op that makes two runs differ
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    _run_hist(recipe="onebit_lamb", steps=1)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            culprit = sorted({str(w.message)[:200] for w in caught})
+        log(f"[family] resume: two uninterrupted runs bitwise equal: {same} "
+            f"(max |dx| {spread_x:.3e}, loss rel {spread_loss:.3e})"
+            + (f"; nondeterministic ops: {culprit}" if culprit else ""))
+
+        first = run(device="cuda", verbose=False, recipe="onebit_lamb",
+                    ckpt=path, **dict(FAMILY, steps=4, warmup_steps=3))
+        size = os.path.getsize(path)
+        save_s = first["checkpoint_s"]["save"]
+        ts1 = first["state"]
+        (params, state), step = load_train_state(
+            path, params_from_flat(ts1.x, leaf_shapes(cfg)), ts1.opt,
+            slots=slots, ctx=ctx, n_buckets=1, block=FAMILY["block_size"])
+        x_back = flat_from_params(params).to("cuda")
+        round_trip = step == 4 and torch.equal(x_back, ts1.x[:ts1.d]) and \
+            all(torch.equal(state[k], ts1.opt[k]) for k in ts1.opt)
+        if not round_trip:
+            raise AssertionError("family resume: the checkpoint does not "
+                                 "load back bitwise")
+        del params, state, x_back, first, ts1
+        torch.cuda.empty_cache()
+
+        resumed = {}
+
+        def resumed_run():
+            resumed.update(run(device="cuda", verbose=False,
+                               recipe="onebit_lamb", resume=path,
+                               **dict(FAMILY, steps=6, warmup_steps=3)))
+            return resumed["history"]
+
+        stats["resume"] = _family_run("resume", resumed_run)
+        r = resumed["state"]
+        want = [h["loss"] for h in full["history"][4:]]
+        got = [h["loss"] for h in resumed["history"]]
+        dx = float((r.x - a.x).abs().max())
+        dloss = max(abs(p - q) / abs(q) for p, q in zip(got, want))
+        bitwise = got == want and torch.equal(r.x, a.x) and all(
+            torch.equal(r.opt[k], a.opt[k]) for k in a.opt)
+        if same and not bitwise:
+            raise AssertionError(f"family resume: not bitwise the "
+                                 f"uninterrupted run (max |dx| {dx:.3e}, "
+                                 f"losses {got} vs {want})")
+        if not same and (dx > 2 * spread_x or dloss > 2 * spread_loss):
+            raise AssertionError(f"family resume: max |dx| {dx:.3e}, loss "
+                                 f"rel {dloss:.3e}, outside twice the spread "
+                                 f"of two uninterrupted runs")
+        cs = resumed["checkpoint_s"]
+        stats["resume"].update(
+            checkpoint_bytes=size, save_s=save_s,
+            load_s=cs["load"], round_trip_bitwise=round_trip,
+            resume_bitwise=bitwise, two_runs_bitwise=same,
+            spread_max_abs_x=spread_x, spread_loss_rel=spread_loss,
+            nondeterministic_ops=culprit)
+        log(f"[family] resume: checkpoint {size} bytes, saved in "
+            f"{save_s:.1f} s, loaded in {cs['load']:.1f} "
+            f"s; round trip bitwise; steps 4-5 losses {got} (uninterrupted "
+            f"{want}); resume bitwise: {bitwise}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_family(main_losses) -> dict:
+    """The five family runs at full BERT-Large width and depth; each one's
+    launch counts set to 0 before and checked after it."""
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.step import seed_zero1
+    block = {"block_size": FAMILY["block_size"]}
+    stats = {}
+
+    def lamb():
+        res = _run_hist(recipe="onebit_lamb")
+        scale = res["state"].opt.scale
+        if not bool((scale > 0).all()):
+            raise AssertionError("onebit_lamb: trust ratios not frozen")
+        return res["history"]
+
+    stats["onebit_lamb"] = _family_run("onebit_lamb", lamb)
+
+    def zerone():
+        opt = get_optimizer("zerone_adam", compressor="onebit",
+                            compressor_kwargs=block, **ZERONE)
+        ts, stream = _family_state(opt, "local")
+        hist, (w, c) = [], ZERONE_STEPS
+        for step in range(w + c):
+            stage = "warmup" if step < w else "compressed"
+            sync = stage == "warmup" or opt.sync_due(step - w)
+            rec = _timed_step(ts, opt, stream.batch_at(step), step, stage,
+                              sync=sync)
+            moved = rec["launched"].get("ef_compress", 0) + \
+                rec["launched"].get("decompress", 0)
+            if not sync and moved:
+                raise AssertionError(f"0/1 Adam: 0-bit step {step} launched "
+                                     f"{rec['launched']}")
+            hist.append(rec)
+        if [h["sync"] for h in hist[w:]] != [True, True, True, False, True]:
+            raise AssertionError(f"0/1 Adam sync schedule {hist}")
+        if int(ts.opt.v_step) != 8:
+            raise AssertionError(f"0/1 Adam: v last refreshed at count "
+                                 f"{int(ts.opt.v_step)}, expected 8")
+        return hist
+
+    stats["zerone_adam_local"] = _family_run("zerone_adam_local", zerone)
+
+    def topk():
+        return _run_hist(recipe="onebit_adam_topk")["history"]
+
+    stats["onebit_adam_topk"] = _family_run("onebit_adam_topk", topk)
+
+    def zero1_accum():
+        opt = get_optimizer("onebit_adam", compressor="onebit",
+                            compressor_kwargs=block)
+        ts, stream = _family_state(opt)
+        hist = [_timed_step(ts, opt, stream.batch_at(step), step, "warmup",
+                            accum_steps=2) for step in range(3)]
+        seed_zero1(ts, opt)
+        hist += [_timed_step(ts, opt, stream.batch_at(step), step,
+                             "compressed", accum_steps=2)
+                 for step in range(3, 6)]
+        if ts.layout != "zero1" or "master_shard" not in ts.opt:
+            raise AssertionError("zero1 run did not run under zero1")
+        return hist
+
+    stats["zero1_accum"] = _family_run("zero1_accum", zero1_accum)
+    got = stats["zero1_accum"]["losses"][:3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, main_losses[:3])]
+    stats["zero1_accum"]["warmup_loss_rel_to_main"] = rel
+    log(f"[family] zero1_accum warmup losses {got} vs phase 5's "
+        f"{main_losses[:3]}: rel {rel} (rtol {ACCUM_LOSS_RTOL})")
+    if max(rel) > ACCUM_LOSS_RTOL:
+        raise AssertionError("zero1_accum: warmup losses off phase 5's")
+
+    _resume(stats)
+    return stats
 
 
 def _kernel_group(name: str) -> str:
@@ -402,8 +784,8 @@ def phase_flash(seed: int = 0):
     f32 shapes (SIMT) at tests/test_kernels.py's tolerance, ragged fp16
     shapes (tensor cores), padded head dims in every dtype, then the
     serving shape in bf16, timed beside the SIMT kernel, the plain version
-    and PyTorch's fused attention.  Returns the two kernels' entries of the
-    JSON line (launches filled later)."""
+    and PyTorch's fused attention, and the wide instance (D > 256).  Returns
+    the three kernels' entries of the JSON line (launches filled later)."""
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import kernel as FK
@@ -416,7 +798,7 @@ def phase_flash(seed: int = 0):
         return [torch.randn(shape, generator=gen, device=dev).to(dtype)
                 for _ in range(3)]
 
-    def check(shape, dtype, causal, window, counter):
+    def check(shape, dtype, causal, window, counter, tol=None):
         q, k, v = qkv(shape, dtype)
         before = build.launch_counts()[counter]
         got = FK.flash_attention(q, k, v, causal=causal, window=window)
@@ -424,7 +806,8 @@ def phase_flash(seed: int = 0):
             raise AssertionError(f"flash {shape} {dtype}: not routed to "
                                  f"{counter}")
         want = FR.sdpa(q, k, v, causal=causal, window=window)
-        tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+        tol = tol or (FLASH_F32_TOL if dtype == torch.float32
+                      else FLASH_BF16_TOL)
         need = atol_needed(got, want, tol["rtol"])
         torch.testing.assert_close(got.float(), want.float(), **tol)
         return float((got.float() - want.float()).abs().max()), need
@@ -457,6 +840,40 @@ def phase_flash(seed: int = 0):
         f"{k} {v:.2e}" for k, v in pad.items()) + "; least atol that "
         "passes at the case's rtol " + ", ".join(
         f"{k} {v:.2e}" for k, v in pad_need.items()))
+
+    wide, wide_need = {}, {}
+    for d in FLASH_WIDE_DIMS:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for causal, window in ((True, None), (False, None), (True, 64)):
+                mask = "causal" if causal else "full"
+                key = f"{d}/{str(dtype)[6:]}/{mask}" \
+                    + (f"/w{window}" if window else "")
+                wide[key], wide_need[key] = check(
+                    (1, 2, 200, d), dtype, causal, window,
+                    "flash_attention_wide", FLASH_WIDE_TOL[dtype])
+    log("[flash] head dims above 256 (wide SIMT instance) ok (" + "; ".join(
+        f"{str(t)[6:]} rtol {v['rtol']} / atol {v['atol']}"
+        for t, v in FLASH_WIDE_TOL.items()) + "), max abs err " + ", ".join(
+            f"{k} {v:.2e}" for k, v in wide.items()) + "; least atol that "
+        "passes at the case's rtol " + ", ".join(
+            f"{k} {v:.2e}" for k, v in wide_need.items()))
+    wb, wh, ws, wd = FLASH_WIDE_TIMED
+    q, k, v = qkv(FLASH_WIDE_TIMED, torch.bfloat16)
+    wide_t = dict(
+        shape=list(FLASH_WIDE_TIMED), dtype="bfloat16", causal=True,
+        ms=time_ms(lambda: FK.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: FR.sdpa(q, k, v, causal=True), reps=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)))
+    wide_t["bound_ms"], wide_t["bound_by"] = bound(
+        4 * wb * wh * ws * wd * q.element_size(), 2 * wb * wh * ws * ws * wd,
+        BF16_TENSOR_OPS_PER_S)
+    log(f"[flash] wide instance at {FLASH_WIDE_TIMED} bf16 causal: "
+        f"{wide_t['ms']:.3f} ms (plain {wide_t['plain_ms']:.3f} ms, "
+        f"scaled_dot_product_attention {wide_t['library_ms']:.3f} ms, bound "
+        f"{wide_t['bound_ms']:.3f} ms by {wide_t['bound_by']})")
+    del q, k, v
+    torch.cuda.empty_cache()
 
     b, h, s, d = 8, 24, 2048, 128
     q, k, v = qkv((b, h, s, d), torch.bfloat16)
@@ -539,7 +956,14 @@ def phase_flash(seed: int = 0):
         bitwise_share=stats["flash_attention"]["same"],
         ms=stats["flash_attention"]["ms"], timed_on="bf16 serving shape",
         max_abs_err_padded=pad, **common)
-    return simt, wgmma
+    wide_e = dict(
+        name="flash_attention_wide", route="cuda",
+        source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:84", ok=True,
+        max_abs_err=max(wide.values()), max_abs_err_cases=wide,
+        atol_needed=wide_need, timed_on=wide_t.pop("shape"),
+        timed_dtype=wide_t.pop("dtype"), **wide_t)
+    return simt, wgmma, wide_e
 
 
 def _teacher_forced(eng, toks: torch.Tensor, s: int, n: int):
@@ -631,7 +1055,8 @@ def phase_serve_main():
     counts = build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
-            "flash_attention": 0, "flash_attention_wgmma": cfg.n_layers}
+            "flash_attention": 0, "flash_attention_wgmma": cfg.n_layers,
+            "flash_attention_wide": 0}
     if counts != want:
         raise AssertionError(f"serve launch counts {counts}, expected {want}")
     tokens = out["tokens"]
@@ -727,7 +1152,10 @@ def main() -> int:
     stats["profile"] = phase_profile(state)
     del state
     torch.cuda.empty_cache()
-    simt, wgmma = phase_flash()
+    phase_family_small()
+    family = phase_family(stats["losses"])
+    torch.cuda.empty_cache()
+    simt, wgmma, wide = phase_flash()
     phase_serve_small()
     serve_counts, serve_stats, eng, prompts = phase_serve_main()
     serve_stats["profile"] = phase_serve_profile(eng, prompts)
@@ -735,12 +1163,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     for e in entries:
         e["launches"] = counts[e["name"]]
-    for e in (simt, wgmma):
+        e["launches_family"] = {tag: f["launches"][e["name"]]
+                                for tag, f in family.items()}
+    for e in (simt, wgmma, wide):
         e["launches"] = serve_counts[e["name"]]
+        e["launches_family"] = {tag: f["launches"][e["name"]]
+                                for tag, f in family.items()}
         entries.append(e)
     for e in entries:
         e["kernel_ms"] = e["ms"]
     print(json.dumps({"main_path": stats}))
+    print(json.dumps({"family_path": family}))
     print(json.dumps({"serve_path": serve_stats}))
     print(json.dumps({"kernels": entries}))
     print(card)

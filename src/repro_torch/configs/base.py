@@ -4,7 +4,9 @@ The port's copy of ``repro/configs/base.py``: the fields the BERT encoder
 training path (slice 1) and the dense-decoder serving path (slice 2)
 read, ``padded_vocab`` and ``reduced()`` (the CPU smoke variant, derived
 exactly as the reference derives it), ``InputShape``, ``OptimSpec`` and
-the ``onebit_adam`` recipe.
+the training recipes of the optimizer family.  The reference's
+``onebit_adam_autotopo`` and ``onebit_adam_pipelined`` recipes need the
+plan tuner and the pipelined exchange, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -86,8 +88,9 @@ class ArchConfig:
 @dataclasses.dataclass(frozen=True)
 class OptimSpec:
     """Named training recipe: registry names of the optimizer and the
-    compressor, and the warmup switch policy ("steps" = manual T_w,
-    "auto" = the Sec. 7.1 variance-ratio rule)."""
+    compressor, their extra keyword arguments, and the warmup switch
+    policy ("steps" = manual T_w, "auto" = the Sec. 7.1 variance-ratio
+    rule)."""
 
     name: str = "onebit_adam"
     optimizer: str = "onebit_adam"
@@ -95,6 +98,8 @@ class OptimSpec:
     block_size: int = 4096
     switch_mode: str = "steps"
     var_freeze_threshold: float = 0.96
+    optimizer_kwargs: Optional[dict] = None
+    compressor_kwargs: Optional[dict] = None
 
 
 _OPTIM_RECIPES: Dict[str, OptimSpec] = {}
@@ -116,7 +121,26 @@ def list_optim_recipes():
     return sorted(_OPTIM_RECIPES)
 
 
-register_optim_recipe(OptimSpec(name="onebit_adam"))
+# one per registered optimizer, plus the paper's ablations (32-bit
+# identity schedule, EF top-k) and the auto-warmup rule
+for _spec in (
+    OptimSpec(name="onebit_adam"),
+    OptimSpec(name="onebit_adam_auto", switch_mode="auto"),
+    OptimSpec(name="onebit_adam_32bit", compressor="identity"),
+    OptimSpec(name="onebit_adam_topk", compressor="topk"),
+    OptimSpec(name="zerone_adam", optimizer="zerone_adam",
+              optimizer_kwargs={"var_update_interval": 16,
+                                "var_freeze_step": 1000,
+                                "sync_double_every": 0}),
+    OptimSpec(name="zerone_adam_local", optimizer="zerone_adam",
+              optimizer_kwargs={"var_update_interval": 16,
+                                "var_freeze_step": 1000,
+                                "sync_base_interval": 1,
+                                "sync_double_every": 64,
+                                "sync_max_interval": 4}),
+    OptimSpec(name="onebit_lamb", optimizer="onebit_lamb"),
+):
+    register_optim_recipe(_spec)
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 

@@ -50,12 +50,16 @@ _SIGNATURES = {
     "repro_flash_attention_wgmma": ((_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                      ctypes.c_int, ctypes.c_int, _I64, _P),
                                     ctypes.c_int),
+    "repro_flash_attention_wide": ((_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                    _I64, ctypes.c_int, ctypes.c_int, _I64,
+                                    _P), ctypes.c_int),
     "repro_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 
 _LAUNCHES: Dict[str, int] = {"ef_compress": 0, "decompress": 0,
                              "adam_step": 0, "flash_attention": 0,
-                             "flash_attention_wgmma": 0}
+                             "flash_attention_wgmma": 0,
+                             "flash_attention_wide": 0}
 _LIB: Optional[ctypes.CDLL] = None
 
 

@@ -15,6 +15,11 @@ received chunks and their f32 mean in rank order; ``all_gather`` into one
 tensor per leaf, then decompress; ``all_reduce`` (sum, then the division
 by n).  With empty ``axes`` the compress/decompress round trip still runs,
 so single-rank numerics match the distributed path.
+
+Neither gloo nor NCCL has a 16-bit integer type: a uint16 leaf (the top-k
+indices) crosses the wire as its uint8 byte view, the same bytes, and is
+viewed back on arrival.  A leaf's byte view chunks exactly as the leaf
+does, so the all_to_all and all_gather slicing is unchanged.
 """
 from __future__ import annotations
 
@@ -53,6 +58,12 @@ def _compress(op, comp, value: torch.Tensor, errs: Errs
     return payload, errs
 
 
+def _on_wire(p: torch.Tensor) -> torch.Tensor:
+    """The tensor a collective moves for payload leaf ``p``."""
+    p = p.contiguous()
+    return p.view(torch.uint8) if p.dtype == torch.uint16 else p
+
+
 def _all_gather_into(out: torch.Tensor, inp: torch.Tensor) -> None:
     # all_gather_single is the newer name of all_gather_into_tensor
     fn = getattr(dist, "all_gather_single", None) or \
@@ -66,9 +77,10 @@ def _exec_all_to_all(op: AllToAll, comp, value, errs):
         return comp.decompress(payload), errs
     recv = []
     for p in payload:
-        r = torch.empty_like(p)
-        dist.all_to_all_single(r, p.contiguous())
-        recv.append(r)
+        w = _on_wire(p)
+        r = torch.empty_like(w)
+        dist.all_to_all_single(r, w)
+        recv.append(r.view(p.dtype))
     # chunk j of every leaf came from rank j: the concatenation is itself a
     # valid payload of n * chunk elements (chunks are block-aligned), so
     # one decompress covers all n chunks
@@ -85,10 +97,11 @@ def _exec_all_gather(op: AllGather, comp, value, errs):
     if op.axes:
         out = []
         for p in payload:
-            o = torch.empty((op.n * p.shape[0],), dtype=p.dtype,
-                            device=p.device)
-            _all_gather_into(o, p.contiguous())
-            out.append(o)
+            w = _on_wire(p)
+            o = torch.empty((op.n * w.shape[0],), dtype=w.dtype,
+                            device=w.device)
+            _all_gather_into(o, w)
+            out.append(o.view(p.dtype))
         payload = tuple(out)
     return comp.decompress(payload), errs
 

@@ -5,7 +5,11 @@ and the port only).
 ``workdir``, runs ``repro_torch.core.comm.compressed_allreduce`` over the
 default process group, and saves its outputs and the payloads it put on
 the wire to ``rank<r>.npz``.  ``train_main``: a few steps of the port's
-``run`` on this rank, saved to ``train<r>.npz``.
+``run`` on this rank, saved to ``train<r>.npz``.  ``payloads_main``: the
+compressed exchange (``repro_torch.core.comm.compressed_exchange``) of
+``inputs.npz`` under the top-k compressor (two payload leaves: f32 values
+and uint16 indices) and the 1-bit one, over gloo on CPU tensors or NCCL on
+this rank's card, saved to ``<backend><r>.npz``.
 """
 import os
 
@@ -13,8 +17,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.comm import compressed_allreduce
-from repro_torch.optim.compressors import OneBitCompressor
+from repro_torch.core.comm import compressed_allreduce, compressed_exchange
+from repro_torch.optim.compressors import OneBitCompressor, TopKCompressor
 
 
 class RecordingCompressor(OneBitCompressor):
@@ -66,5 +70,32 @@ def train_main(rank: int, world: int, workdir: str) -> None:
                  v_l1=np.array([h["v_l1"] for h in hist]),
                  stage=np.array([h["stage"] for h in hist]),
                  x=res["state"].x.numpy(), d_pad=res["d_pad"])
+    finally:
+        dist.destroy_process_group()
+
+
+def payloads_main(rank: int, world: int, workdir: str, block: int,
+                  backend: str) -> None:
+    dev = torch.device("cuda", rank) if backend == "nccl" else \
+        torch.device("cpu")
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(
+            workdir, f"rendezvous_{backend}"), rank=rank, world_size=world)
+    try:
+        data = np.load(os.path.join(workdir, "inputs.npz"))
+        out = {}
+        for name, comp in (("topk", TopKCompressor(block_size=block)),
+                           ("onebit", OneBitCompressor(block_size=block))):
+            m, errs = compressed_exchange(
+                torch.from_numpy(data["xs"][rank]).to(dev),
+                {"worker": torch.from_numpy(data["werrs"][rank]).to(dev),
+                 "server": torch.from_numpy(data["serrs"][rank]).to(dev)},
+                ("dp",), comp)
+            out[f"{name}_out"] = m.cpu().numpy()
+            out[f"{name}_werr"] = errs["worker"].cpu().numpy()
+            out[f"{name}_serr"] = errs["server"].cpu().numpy()
+        np.savez(os.path.join(workdir, f"{backend}{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -13,7 +13,8 @@ flash attention f32 rtol 1e-5 / atol 2e-6 (tests/test_kernels.py's; the
 online softmax sums in another order), bf16 and fp16 rtol 2e-2 (that
 file's bf16 rtol) / atol 5e-3 (the tensor-core kernel rounds p to the
 input dtype before p v; chip_smoke.py reads the least atol that passes,
-at most 2.9e-3).
+at most 2.9e-3); head dims above 256 (the wide SIMT instance) f32 rtol
+1e-5 / atol 1e-5 (the scores sum up to 1024 products), 16-bit as above.
 """
 import numpy as np
 import pytest
@@ -113,14 +114,15 @@ def test_small_run_on_card_matches_cpu(card):
     on_card = run(device="cuda", **kw)
     assert on_card["launches"] == {"adam_step": 2, "ef_compress": 4,
                                    "decompress": 4, "flash_attention": 0,
-                                   "flash_attention_wgmma": 0}
+                                   "flash_attention_wgmma": 0,
+                                   "flash_attention_wide": 0}
     cpu = run(device="cpu", **kw)
     np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
                                [h["loss"] for h in cpu["history"]],
                                rtol=1e-3)
 
 
-def _flash_case(card, shape, dtype, causal, window, fn=None):
+def _flash_case(card, shape, dtype, causal, window, fn=None, tol=None):
     """The kernel's output, the plain version's, and which counter moved."""
     gen = torch.Generator(device=card).manual_seed(sum(shape))
     q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
@@ -133,8 +135,8 @@ def _flash_case(card, shape, dtype, causal, window, fn=None):
     moved = {n for n in after if after[n] != before[n]}
     assert all(after[n] == before[n] + 1 for n in moved)
     assert got.dtype == dtype and got.shape == q.shape
-    tol = (dict(rtol=1e-5, atol=2e-6) if dtype == torch.float32
-           else dict(rtol=2e-2, atol=5e-3))
+    tol = tol or (dict(rtol=1e-5, atol=2e-6) if dtype == torch.float32
+                  else dict(rtol=2e-2, atol=5e-3))
     torch.testing.assert_close(got.float(), want.float(), **tol)
     return moved
 
@@ -170,13 +172,53 @@ def test_wgmma_flash_matches_plain(card, s, d, dtype, causal, window):
                                    torch.float16])
 def test_flash_kernel_head_dims(card, d, dtype):
     """Every D from 1 to 256 is taken (zero-padded to an instance of the
-    dtype's kernel); D = 300 raises."""
+    dtype's kernel); D = 300 takes the wide SIMT instance (padded to 320)
+    in every dtype."""
     moved = _flash_case(card, (1, 2, 200, d), dtype, True, None)
     assert moved == ({"flash_attention"} if dtype == torch.float32
                      else {"flash_attention_wgmma"})
-    q = torch.zeros(1, 1, 64, 300, device=card, dtype=dtype)
-    with pytest.raises(ValueError, match="head dim 300"):
-        fa_kernel.flash_attention(q, q, q)
+    moved = _flash_case(card, (1, 1, 64, 300), dtype, True, None,
+                        tol=WIDE_TOL[dtype])
+    assert moved == {"flash_attention_wide"}
+
+
+# f32 above D = 256: the scores sum up to 1024 products, so their rounding
+# grows with D (an H100 read a max abs err of 4.9e-6 at D = 1000).  16-bit:
+# the wide instance keeps p and the accumulator in f32, as the plain version
+# does, and rounds only the output, so the two differ by at most an output
+# ulp: ulp/|o| is at most 2^-7 (bf16) or 2^-10 (fp16), hence rtol 8e-3 and
+# 1e-3; atol 1e-5 covers outputs near zero (fp16 subnormals below 6.1e-5)
+WIDE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=8e-3, atol=1e-5),
+            torch.float16: dict(rtol=1e-3, atol=1e-5)}
+
+
+@pytest.mark.parametrize("d", [320, 512, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64)])
+def test_wide_flash_matches_plain(card, d, dtype, causal, window):
+    """Head dims above 256 in every dtype take the wide SIMT instance
+    (D streamed in 64-column slices, the accumulator in f32 scratch)."""
+    moved = _flash_case(card, (1, 2, 200, d), dtype, causal, window,
+                        tol=WIDE_TOL[dtype])
+    assert moved == {"flash_attention_wide"}
+
+
+def test_segment_norms_are_deterministic(card):
+    """1-bit LAMB's segment norms on the card: one reduction per range, so
+    two calls on the same input are bitwise equal (a resume needs it)."""
+    from repro_torch.optim.base import SegmentInfo, segment_l1, segment_norms
+    n = 1 << 24
+    x = _randn(card, 5, n)
+    segs = SegmentInfo((n // 2 + 4096, n // 4, n // 4 - 4096 - 8, 8))
+    for fn in (segment_norms, segment_l1):
+        a, b = fn(x, segs), fn(x, segs)
+        assert torch.equal(a, b)
+        want = torch.stack([fn(x[lo:hi].cpu(), SegmentInfo((hi - lo,)))[0]
+                            for lo, hi in segs.ranges()])
+        torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=0.0)
 
 
 def test_simt_flash_kernel_takes_bf16(card):
@@ -185,3 +227,40 @@ def test_simt_flash_kernel_takes_bf16(card):
     moved = _flash_case(card, (1, 2, 320, 128), torch.bfloat16, True, None,
                         fa_kernel.flash_attention_simt)
     assert moved == {"flash_attention"}
+
+
+def test_nccl_exchange_carries_both_payloads(card, tmp_path):
+    """The compressed exchange over NCCL on every card present (2 to 4;
+    skipped with one): the top-k payload (f32 values, uint16 indices as
+    their bytes) and the 1-bit one cross the wire, and each rank's result
+    is the same exchange's over gloo on the CPU: top-k bitwise (copies, and
+    the chunk mean sums in rank order on both), 1-bit to the scales'
+    rtol 1e-6 and the residuals' rtol 1e-5 / atol 1e-6 (the kernel's block
+    means sum in another order than torch's)."""
+    import torch.multiprocessing as mp
+    import _torch_exchange_worker as worker
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs 2 or more cards for NCCL collectives")
+    block = 4096
+    rng = np.random.default_rng(3)
+    d = n * 8 * block
+    np.savez(tmp_path / "inputs.npz",
+             xs=rng.standard_normal((n, d)).astype(np.float32),
+             werrs=(rng.standard_normal((n, d)) * 0.1).astype(np.float32),
+             serrs=(rng.standard_normal((n, d // n)) * 0.1)
+             .astype(np.float32))
+    for backend in ("nccl", "gloo"):
+        mp.start_processes(worker.payloads_main,
+                           args=(n, str(tmp_path), block, backend),
+                           nprocs=n, start_method="spawn")
+    for r in range(n):
+        got = np.load(tmp_path / f"nccl{r}.npz")
+        want = np.load(tmp_path / f"gloo{r}.npz")
+        for k in ("topk_out", "topk_werr", "topk_serr"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_allclose(got["onebit_out"], want["onebit_out"],
+                                   rtol=1e-6)
+        for k in ("onebit_werr", "onebit_serr"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       atol=1e-6, err_msg=k)

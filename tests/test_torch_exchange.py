@@ -6,6 +6,11 @@ the compress/decompress round trip).  2 and 4 gloo ranks, each test with
 its own ``file://`` rendezvous under ``tmp_path``: held rank for rank
 against ``repro.testutils.reference.compressed_allreduce_reference``.
 
+Top-k over 2 gloo ranks (two payload leaves, the uint16 indices crossing
+the wire as their bytes): held bitwise against the reference's
+``TopKCompressor`` run through the reference oracle's schedule (worker
+EF-compress, decompress, chunk means in rank order, server EF-compress).
+
 The sign bits on the wire are bitwise the reference's.  Scales are block
 means summed in another order than XLA's, so they, the averaged output
 (+-scale) and the residuals agree to rtol 1e-6 / 1e-5 (tests/test_kernels.py
@@ -133,3 +138,38 @@ def test_two_rank_training_keeps_replicas_identical(tmp_path):
     np.testing.assert_array_equal(r0["loss"], r1["loss"])
     np.testing.assert_array_equal(r0["v_l1"], r1["v_l1"])
     assert r0["v_l1"][1] == r0["v_l1"][2] == r0["v_l1"][3]   # v frozen
+
+
+def test_topk_two_ranks_matches_reference(tmp_path):
+    """The two-leaf payload path of the executor over gloo: values and
+    indices are copies and the chunk mean sums in rank order on both
+    sides, so the output and both residuals are bitwise the reference's
+    (the kept sets of random inputs are unique)."""
+    from repro.optim.compressors import TopKCompressor as JTopK
+    n = 2
+    xs, werrs, serrs = _inputs(7, n)
+    np.savez(tmp_path / "inputs.npz", xs=xs, werrs=werrs, serrs=serrs)
+    mp.start_processes(worker.payloads_main,
+                       args=(n, str(tmp_path), BLOCK, "gloo"), nprocs=n,
+                       start_method="spawn")
+    comp = JTopK(block_size=BLOCK)
+    d = xs.shape[1]
+    chunk = d // n
+    payloads, new_werrs = [], []
+    for x, e in zip(xs, werrs):
+        p, ne = comp.ef_compress(jnp.asarray(x), jnp.asarray(e))
+        payloads.append(comp.decompress(p))
+        new_werrs.append(np.asarray(ne))
+    outs, new_serrs = [], []
+    for j in range(n):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        avg = sum(p[sl] for p in payloads) / n
+        p, ne = comp.ef_compress(avg, jnp.asarray(serrs[j]))
+        outs.append(np.asarray(comp.decompress(p)))
+        new_serrs.append(np.asarray(ne))
+    want = np.concatenate(outs)
+    for r in range(n):
+        got = np.load(tmp_path / f"gloo{r}.npz")
+        np.testing.assert_array_equal(got["topk_out"], want)
+        np.testing.assert_array_equal(got["topk_werr"], new_werrs[r])
+        np.testing.assert_array_equal(got["topk_serr"], new_serrs[r])

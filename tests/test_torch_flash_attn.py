@@ -15,10 +15,15 @@ sliced back) runs here through the plain version and is held to the
 reference at D = 48 and 80, in f32 and fp16 (fp16 rtol/atol 2e-3: one
 fp16 rounding of the output on either side of a near-tie, two ulps at 1).
 
+Head dims above 256 (the wide SIMT instance on the card, D zero-padded to
+a multiple of 64) go the same way: the plain version at D = 320, and the
+wrapper's padding at D = 300 (to 320), against the reference's kernel on
+the unpadded input, in f32 and fp16.
+
 The wrapper's contract is checked as well: ValueError where the
-reference asserts (S not a multiple of the clamped blocks), the head dims
-the CUDA kernels refuse (D > 256; a CPU tensor of any D takes the plain
-version), and forward only.
+reference asserts (S not a multiple of the clamped blocks), a CPU tensor
+of any head dim refused by the CUDA wrapper for its device only (the
+plain version takes it), and forward only.
 """
 import numpy as np
 import pytest
@@ -107,21 +112,25 @@ def test_raises_where_the_reference_asserts(s, bq, bk):
 
 
 def test_unsupported_head_dim_raises_on_cuda_only():
-    """D = 48: the CPU path computes it (the plain version takes any D),
-    and the CUDA wrapper takes it too (zero-padded to 64), so a CPU tensor
-    is refused only for its device; D = 300 is past every kernel's 256."""
+    """The CUDA wrapper takes every head dim >= 1 (D = 48 zero-padded to
+    64, D = 300 to 320 for the wide instance), so a CPU tensor is refused
+    only for its device, whatever its D; D = 0 is refused for itself.
+    The CPU path computes D = 48 (the plain version takes any D)."""
     arrays = _qkv(7, (1, 2, 64, 48))
     got, want = _both(arrays, causal=True)
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
     q = torch.from_numpy(arrays[0])
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            fa_kernel.flash_attention(q.to(dtype), q.to(dtype), q.to(dtype))
     big = torch.zeros(1, 1, 8, 300)
-    for dtype in (torch.float32, torch.bfloat16):
-        with pytest.raises(ValueError, match="head dim 300"):
-            fa_kernel.flash_attention(big.to(dtype), big.to(dtype),
-                                      big.to(dtype))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for t in (q, big):
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                fa_kernel.flash_attention(t.to(dtype), t.to(dtype),
+                                          t.to(dtype))
+    assert [fa_kernel.kernel_head_dim(300, dt) for dt in
+            (torch.float32, torch.bfloat16, torch.float16)] == [320] * 3
+    assert fa_kernel.kernel_head_dim(1000, torch.float32) == 1024
+    with pytest.raises(ValueError, match="head dim 0"):
+        fa_kernel.kernel_head_dim(0, torch.float32)
 
 
 @pytest.mark.parametrize("d,dtype,causal,window", [
@@ -129,6 +138,8 @@ def test_unsupported_head_dim_raises_on_cuda_only():
     (80, None, False, None),
     (48, jnp.float16, True, None),
     (80, jnp.float16, True, 64),
+    (300, None, True, None),
+    (300, jnp.float16, False, 64),
 ])
 def test_padded_head_dim_matches_reference(d, dtype, causal, window):
     """The CUDA wrapper's pad / true-D scale / slice, through the plain
@@ -145,6 +156,19 @@ def test_padded_head_dim_matches_reference(d, dtype, causal, window):
     got = fa_kernel.with_padded_head_dim(_padded_plain, *tin, causal,
                                          window)
     assert got.dtype == tdt and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **(F32_TOL if dtype is None else F16_TOL))
+
+
+@pytest.mark.parametrize("dtype,causal,window", [
+    (None, True, None), (None, False, 32), (jnp.float16, True, None)])
+def test_wide_head_dim_matches_reference(dtype, causal, window):
+    """D = 320, past the 256 of the tile kernels: the plain version (the
+    CPU path) against the reference's kernel in interpret mode."""
+    arrays = _qkv(320, (1, 2, 128, 320))
+    got, want = _both(arrays, dtype=dtype, causal=causal, window=window,
+                      bq=64, bk=64)
+    assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.float().numpy(), want,
                                **(F32_TOL if dtype is None else F16_TOL))
 

@@ -130,19 +130,31 @@ def _run_child(code: str) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Importing the port and running it on the CPU (training, and the
-    serving engine) loads no JAX and nothing of the ``repro`` package."""
+    """Importing every module of the port and running it on the CPU
+    (training under each layout with a checkpoint resume, and the serving
+    engine) loads no JAX and nothing of the ``repro`` package."""
     code = (
-        "import sys\n"
+        "import importlib, os, pkgutil, sys, tempfile\n"
         "import repro_torch, repro_torch.launch.train as L\n"
-        "import repro_torch.kernels.build, repro_torch.convert\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "ck = os.path.join(tempfile.mkdtemp(), 'c.npz')\n"
+        "for rc in ('onebit_lamb', 'zerone_adam_local'):\n"
+        "    L.run(arch='bert-large-smoke', recipe=rc, steps=2,"
+        " warmup_steps=1, batch=2, seq=32, block_size=512, device='cpu',"
+        " verbose=False, ckpt=ck)\n"
+        "    L.run(arch='bert-large-smoke', recipe=rc, steps=3,"
+        " warmup_steps=1, batch=2, seq=32, block_size=512, device='cpu',"
+        " verbose=False, resume=ck)\n"
         "r = L.run(arch='bert-large-smoke', steps=3, warmup_steps=2,"
         " batch=2, seq=32, block_size=512, device='cpu', verbose=False)\n"
         "assert [h['stage'] for h in r['history']] == "
         "['warmup', 'warmup', 'compressed']\n"
         "assert r['launches'] == {'ef_compress': 0, 'decompress': 0,"
         " 'adam_step': 0, 'flash_attention': 0,"
-        " 'flash_attention_wgmma': 0}, r['launches']\n"
+        " 'flash_attention_wgmma': 0, 'flash_attention_wide': 0},"
+        " r['launches']\n"
         "import dataclasses, torch\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models.transformer import init_params\n"
