@@ -34,6 +34,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                run under zero1 (warmup losses held to phase 5's), and a
                checkpoint resume (4 steps, save, load back bitwise,
                resume to 6 against uninterrupted runs).
+  6c. pipeline — the bucketed pipelined exchange with backward overlap:
+               first ``bert-large-smoke`` with ``pipeline=4,
+               overlap_bwd="on"`` on the card and on the CPU (losses
+               agree as phase 4's do; on the card bitwise the serial run);
+               then the main path again through ``run`` at full
+               BERT-Large (3 + 3 steps, seed 0, batch 16 x seq 128, block
+               4096) with 4 buckets (22,251 / 22,251 / 22,251 / 22,252
+               alignment units of 4096) and backward overlap: losses and
+               the final x, m, worker_err and server_err bitwise phase 5's
+               (host copies taken before phase 6 moved the state on);
+               launch counts 3 / 24 / 24 read around exactly this run;
+               3 of the 4 stage 0s issued before backward's last gradient
+               (the embedding's) lands; peak memory; one compressed step
+               profiled as in phase 6 (device-to-device copy time beside
+               phase 6's).
   7. flash   — both flash-attention kernels against their plain version on
                the card: the SIMT kernel (the f32 route) on small f32 shapes
                (S 128/256/512, D 32/64/128, causal and not, windows
@@ -60,8 +75,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                (measurement only).
 
 Launch counts are set to 0 just before each main path (training in phase
-5, each family run in phase 6b, serving in phase 9) and read just after
-it.  It prints the
+5, each family run in phase 6b, the pipelined run in phase 6c, serving in
+phase 9) and read just after it.  It prints the
 ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -127,6 +142,21 @@ FAMILY_LAUNCHES = {
 # (tests/test_torch_family_slice.py::test_accum_steps_against_full_batch
 # fixes this rtol on the CPU, where it measured up to 3.6e-4)
 ACCUM_LOSS_RTOL = 1e-3
+
+# phase 6c: the main path with the bucketed pipelined exchange and backward
+# overlap; 2 ef_compress and 2 decompress launches a bucket and compressed
+# step (no collective on one card: worker and server EF, both decompresses)
+PIPE_BUCKETS = 4
+PIPE_UNITS = (22251, 22251, 22251, 22252)
+PIPE_LAUNCHES = {"adam_step": 3, "ef_compress": 24, "decompress": 24,
+                 "flash_attention": 0, "flash_attention_wgmma": 0,
+                 "flash_attention_wide": 0}
+PIPE = dict(pipeline=PIPE_BUCKETS, overlap_bwd="on")
+# buckets 0-2 hold stacked block leaves whose layer-0 slices land before the
+# embedding's gradient; bucket 3 holds the embedding and issues last
+PIPE_EARLY = PIPE_BUCKETS - 1
+# the state phase 6c is held to, bitwise
+PIPE_STATE = ("m", "worker_err", "server_err")
 
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
@@ -695,6 +725,113 @@ def phase_family(main_losses) -> dict:
     return stats
 
 
+def phase_pipeline_small() -> None:
+    """``bert-large-smoke`` with the pipelined exchange and backward
+    overlap on the card and on the CPU from one seed: losses agree as
+    phase 4's do; on the card the run is bitwise the serial one."""
+    from repro_torch.launch.train import run
+    card = run(device="cuda", **SMALL, **PIPE)
+    cpu = run(device="cpu", **SMALL, **PIPE)
+    serial = run(device="cuda", **SMALL)
+    for res in (card, cpu):
+        if res["n_buckets"] != PIPE_BUCKETS or not any(
+                h["overlap"] for h in res["history"]):
+            raise AssertionError(f"pipeline small: {res['plan']}, overlap "
+                                 f"{[h['overlap'] for h in res['history']]}")
+    for a, b in zip(card["history"], cpu["history"]):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        if a["stage"] != b["stage"] or not math.isfinite(a["loss"]) \
+                or rel > SMALL_LOSS_RTOL:
+            raise AssertionError(f"pipeline small: step {a} on the card vs "
+                                 f"{b} on the CPU")
+    got = [h["loss"] for h in card["history"]]
+    want = [h["loss"] for h in serial["history"]]
+    if got != want or not torch.equal(card["state"].x, serial["state"].x):
+        raise AssertionError(f"pipeline small: card losses {got} not "
+                             f"bitwise the serial run's {want}")
+    log(f"[pipeline-small] {card['plan']}: card vs cpu losses "
+        + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}" for a, b in
+                    zip(card["history"], cpu["history"]))
+        + "; card bitwise the serial run")
+
+
+def phase_pipeline(main_losses, main_state) -> dict:
+    """Phase 6c: the main path with 4 buckets and backward overlap, held
+    bitwise to phase 5's run; launch counts, peak memory, one profiled
+    compressed step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import run
+    from repro_torch.state import bucket_sizes_for
+    from repro_torch.train.step import train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = run(device="cuda", **MAIN, **PIPE)
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    w = MAIN["warmup_steps"]
+    sizes = bucket_sizes_for(res["d_pad"], 1, MAIN["block_size"],
+                             PIPE_BUCKETS)
+    if tuple(s // MAIN["block_size"] for s in sizes) != PIPE_UNITS:
+        raise AssertionError(f"bucket sizes {sizes}")
+    if res["plan"] != f"pipe(flat/onebit)x{PIPE_BUCKETS}" or \
+            [h["overlap"] for h in hist] != [False] * w + [True] * (
+                MAIN["steps"] - w):
+        raise AssertionError(f"pipeline: plan {res['plan']}, overlap "
+                             f"{[h['overlap'] for h in hist]}")
+    # stage 0s issued before backward's last gradient (the embedding's)
+    # landed: every bucket but the embedding's, issued last
+    early = [h["stage0_in_bwd"] for h in hist]
+    if early != [0] * w + [PIPE_EARLY] * (MAIN["steps"] - w):
+        raise AssertionError(f"pipeline: stage 0s issued inside backward "
+                             f"{early}, expected {PIPE_EARLY} a compressed "
+                             "step")
+    log(f"[pipeline] stage 0s issued inside backward a step: {early}")
+    if counts != PIPE_LAUNCHES or res["launches"] != counts:
+        raise AssertionError(f"pipeline: launch counts {counts}, expected "
+                             f"{PIPE_LAUNCHES}")
+    losses = [h["loss"] for h in hist]
+    ts = res["state"]
+    same = {"losses": losses == main_losses,
+            "x": torch.equal(ts.x.cpu(), main_state["x"])}
+    for k in PIPE_STATE:
+        same[k] = torch.equal(ts.opt[k].cpu(), main_state[k])
+    log(f"[pipeline] {res['plan']} overlap on: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; bitwise phase 5's: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"pipeline: not bitwise phase 5's run {same}")
+    comp_ms = [h["ms"] for h in hist[w:]]
+    log(f"[pipeline] warmup step ms {[h['ms'] for h in hist[:w]]}, "
+        f"compressed step ms {comp_ms}, peak memory {peak} bytes")
+
+    cfg = get_config(MAIN["arch"])
+    stream = SyntheticStream(
+        cfg, InputShape("profile", MAIN["seq"], MAIN["batch"], "train"),
+        seed=1, device="cuda")
+    batch = stream.batch_at(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(ts, res["optimizer"], batch, 1e-4, "compressed",
+                   n_buckets=PIPE_BUCKETS, overlap_bwd=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_stats = _device_breakdown(prof, wall_ms)
+    _log_breakdown("pipeline-profile", "compressed", prof_stats)
+    del ts, res
+    torch.cuda.empty_cache()
+    return dict(step_ms=[h["ms"] for h in hist], losses=losses,
+                peak_bytes=peak, launches=counts, bucket_sizes=list(sizes),
+                stage0_in_bwd=early, bitwise_main=same, profile=prof_stats)
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
@@ -722,15 +859,19 @@ def _device_breakdown(prof, wall_ms: float) -> dict:
         by_group[g] = by_group.get(g, 0.0) + ms
     busy = sum(by_group.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    dtod = sum(ms for n, ms in by_name.items()
+               if n.lower().startswith("memcpy dtod"))
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if busy else None,
             "n_kernels": len(kernels), "by_group_ms": by_group,
+            "memcpy_dtod_ms": dtod,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
 def _log_breakdown(tag: str, what: str, r: dict) -> None:
     log(f"[{tag}] {what}: wall {r['wall_ms']:.1f} ms, device busy "
-        f"{r['device_busy_ms']:.1f} ms over {r['n_kernels']} kernels; "
+        f"{r['device_busy_ms']:.1f} ms over {r['n_kernels']} kernels "
+        f"(Memcpy DtoD {r['memcpy_dtod_ms']:.2f} ms); "
         + ", ".join(f"{g} {ms:.1f} ms"
                     for g, ms in sorted(r["by_group_ms"].items())))
 
@@ -1149,12 +1290,20 @@ def main() -> int:
     entries = phase_kernels(d_pad, MAIN["block_size"])
     phase_small()
     counts, stats, state = phase_main()
+    # phase 6c is held to the state after phase 5's sixth step, which
+    # phase 6's profiled steps move on
+    main_state = {"x": state.x.cpu()}
+    main_state.update({k: state.opt[k].cpu() for k in PIPE_STATE})
     stats["profile"] = phase_profile(state)
     del state
     torch.cuda.empty_cache()
     phase_family_small()
     family = phase_family(stats["losses"])
     torch.cuda.empty_cache()
+    phase_pipeline_small()
+    pipe = phase_pipeline(stats["losses"], main_state)
+    del main_state
+    family["pipeline"] = pipe
     simt, wgmma, wide = phase_flash()
     phase_serve_small()
     serve_counts, serve_stats, eng, prompts = phase_serve_main()
@@ -1173,7 +1322,9 @@ def main() -> int:
     for e in entries:
         e["kernel_ms"] = e["ms"]
     print(json.dumps({"main_path": stats}))
-    print(json.dumps({"family_path": family}))
+    print(json.dumps({"family_path": {k: v for k, v in family.items()
+                                      if k != "pipeline"}}))
+    print(json.dumps({"pipeline_path": pipe}))
     print(json.dumps({"serve_path": serve_stats}))
     print(json.dumps({"kernels": entries}))
     print(card)

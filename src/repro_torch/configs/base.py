@@ -5,8 +5,10 @@ training path (slice 1) and the dense-decoder serving path (slice 2)
 read, ``padded_vocab`` and ``reduced()`` (the CPU smoke variant, derived
 exactly as the reference derives it), ``InputShape``, ``OptimSpec`` and
 the training recipes of the optimizer family.  The reference's
-``onebit_adam_autotopo`` and ``onebit_adam_pipelined`` recipes need the
-plan tuner and the pipelined exchange, which the port does not have yet.
+``onebit_adam_autotopo`` and ``onebit_adam_pipelined`` recipes, and the
+``topology`` / ``pipeline`` fields of ``OptimSpec`` that only they set,
+need the plan tuner, which the port does not have yet: the topology and
+the pipeline are the run's own options.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ anything it does not take; a CPU tensor takes the plain version
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,12 +26,14 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def ef_compress_fused(x: torch.Tensor, err: torch.Tensor,
-                      block_size: int = DEFAULT_BLOCK
+                      block_size: int = DEFAULT_BLOCK,
+                      out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused (compress(x+err), new_err) — the EF hot path."""
+    """Fused (compress(x+err), new_err) — the EF hot path; ``out``, when
+    given, receives new_err."""
     if _on_card(x):
-        return K.ef_compress_fused(x, err, block_size)
-    return R.ef_compress_fused(x, err, block_size)
+        return K.ef_compress_fused(x, err, block_size, out=out)
+    return R.ef_compress_fused(x, err, block_size, out=out)
 
 
 def compress(x: torch.Tensor, block_size: int = DEFAULT_BLOCK
@@ -43,7 +45,8 @@ def compress(x: torch.Tensor, block_size: int = DEFAULT_BLOCK
 
 
 def decompress(packed: torch.Tensor, scales: torch.Tensor,
-               block_size: int = DEFAULT_BLOCK) -> torch.Tensor:
+               block_size: int = DEFAULT_BLOCK,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     if _on_card(packed):
-        return K.decompress(packed, scales, block_size)
-    return R.decompress(packed, scales, block_size)
+        return K.decompress(packed, scales, block_size, out=out)
+    return R.decompress(packed, scales, block_size, out=out)

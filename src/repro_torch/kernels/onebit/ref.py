@@ -12,7 +12,7 @@ Wire format (shared with ``repro_torch.core.compression``):
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,18 +45,24 @@ def compress(x: torch.Tensor, block_size: int
 
 
 def decompress(packed: torch.Tensor, scales: torch.Tensor,
-               block_size: int) -> torch.Tensor:
-    """((d/8,) u8, (d/block,) f32) -> (d,) f32."""
+               block_size: int, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """((d/8,) u8, (d/block,) f32) -> (d,) f32, written into ``out``
+    when given."""
     signs = unpack_signs(packed).reshape(-1, block_size)
-    return (signs * scales[:, None]).reshape(-1)
+    vals = (signs * scales[:, None]).reshape(-1)
+    return vals if out is None else out.copy_(vals)
 
 
-def ef_compress_fused(x: torch.Tensor, err: torch.Tensor, block_size: int
+def ef_compress_fused(x: torch.Tensor, err: torch.Tensor, block_size: int,
+                      out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """buf = x + err; compress(buf); new_err = buf - decompress.
+    """buf = x + err; compress(buf); new_err = buf - decompress (into
+    ``out`` when given).
 
     Returns (packed, scales, new_err)."""
     buf = x + err
     packed, scales = compress(buf, block_size)
-    new_err = buf - decompress(packed, scales, block_size)
+    new_err = torch.sub(buf, decompress(packed, scales, block_size),
+                        out=out)
     return packed, scales, new_err

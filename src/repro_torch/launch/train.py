@@ -2,11 +2,26 @@
 
 Runs on the card unless asked for the CPU (``--device cpu``); asking for
 ``cuda`` without a card raises.  One process is one dp rank: run it alone
-(n_dp = 1), or under ``torchrun`` (NCCL on cuda, gloo on cpu).
+(n_dp = 1), or under ``torchrun`` (NCCL on cuda, gloo on cpu), where the
+mesh defaults to one dp axis over ``WORLD_SIZE`` ranks.
 
   python -m repro_torch.launch.train --arch bert-large --steps 6 \\
       --warmup-steps 3 --batch 16 --seq 128 --recipe onebit_lamb
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch bert-large
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+      --arch bert-large-smoke --mesh 2x2x1 --topology hier --pipeline 2 \\
+      --overlap-bwd on
+
+``--mesh`` takes the reference's grammar with a model axis of 1 (``N``,
+``Nx1``, ``PxNx1``: P pods of N ranks).  ``--topology hier`` runs the
+two-level exchange (on a one-pod mesh it is the flat one, and the printed
+plan says ``flat/...``); ``--pipeline N`` splits the compressed exchange
+into N block-aligned buckets (clamped to the alignment units);
+``--overlap-bwd on`` issues each bucket's exchange from inside backward
+on compressed steps that synchronise, with more than one bucket (every
+other step runs serially; each step's record says which).  ``auto`` for
+any of them needs the plan tuner, which the port does not have: it
+raises.
 
 A recipe (``--recipe``, ``repro_torch.configs.list_optim_recipes``) names
 the optimizer, the compressor, their keyword arguments and the warmup
@@ -21,12 +36,13 @@ leaves the warmup switch unfed, as the reference's does.
 
 ``run(...)`` is the entry point the tests and ``chip_smoke.py`` drive: it
 returns the per-step history (loss, stage, sync, metrics, step time) and
-the kernel launch counts of the run.
+the kernel launch counts of the run.  It prints the run's plan first.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import time
 from typing import Optional
@@ -40,11 +56,15 @@ from repro_torch.configs.base import InputShape
 from repro_torch.convert import flat_from_params, params_from_flat
 from repro_torch.data import SyntheticStream
 from repro_torch.kernels import build
+from repro_torch.launch.mesh import build_mesh, pod_split
 from repro_torch.models.transformer import init_params, leaf_shapes
 from repro_torch.optim import WarmupSwitch, get_optimizer
-from repro_torch.state import flat_layout
+from repro_torch.plan.schedules import (allreduce_schedule, flat_schedule,
+                                        hier_schedule, needs_outer_ef)
+from repro_torch.state import StateLayout, bucket_sizes_for
 from repro_torch.state.checkpoint import load_train_state, save_train_state
-from repro_torch.train.step import flat_dim, init_train_state, train_step
+from repro_torch.train.step import (flat_dim, init_train_state,
+                                    overlap_applies, train_step)
 
 CKPT_EVERY = 100
 
@@ -71,6 +91,50 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
+def _no_auto(name: str, value) -> None:
+    if value == "auto":
+        raise NotImplementedError(
+            f"{name}='auto' needs the plan cost model and tuner, a later "
+            "slice of the port (Slice D): pass it explicitly")
+
+
+def resolve_schedule(topology, pipeline, overlap_bwd) -> tuple:
+    """(topology, n_buckets, overlap) from the options' spellings: a
+    topology name, ``"off"`` or a bucket count, ``"off"`` or ``"on"``.
+    ``auto`` raises."""
+    for name, value in (("topology", topology), ("pipeline", pipeline),
+                        ("overlap_bwd", overlap_bwd)):
+        _no_auto(name, value)
+    if topology not in ("flat", "hier"):
+        raise ValueError(f"topology must be 'flat' or 'hier', got "
+                         f"{topology!r}")
+    n_buckets = 1 if pipeline == "off" else int(pipeline)
+    if n_buckets < 1:
+        raise ValueError(f"pipeline must be 'off' or a count >= 1, got "
+                         f"{pipeline!r}")
+    if overlap_bwd not in ("off", "on"):
+        raise ValueError(f"overlap_bwd must be 'off' or 'on', got "
+                         f"{overlap_bwd!r}")
+    return topology, n_buckets, overlap_bwd == "on"
+
+
+def run_plans(optim, d_pad: int, dp_axes, dp_sizes, topology: str):
+    """The (warmup, compressed) CommPlans this run executes, built on the
+    host as the step builds them (``hier`` on one pod is flat)."""
+    n_dp = math.prod(dp_sizes)
+    axes = tuple(dp_axes) if n_dp > 1 else ()
+    inner, outer, n_inner, n_outer = pod_split(axes, dp_sizes)
+    comp = optim.compressor
+    warm = allreduce_schedule(d_pad, n_dp, axes,
+                              tier="cross" if n_outer > 1 else "intra")
+    if topology == "hier" and n_outer > 1:
+        plan = hier_schedule(comp, d_pad, n_inner, n_outer, inner, outer,
+                             outer_ef=needs_outer_ef(comp))
+    else:
+        plan = flat_schedule(comp, d_pad, n_dp, axes)
+    return warm, plan
+
+
 def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         steps: int = 100, warmup_steps: Optional[int] = None,
         batch: int = 8, seq: int = 128, block_size: int = 4096,
@@ -78,19 +142,24 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         device: str = "cuda", verbose: bool = True,
         optimizer: Optional[str] = None, compressor: Optional[str] = None,
         ckpt: Optional[str] = None, resume: Optional[str] = None,
-        stage_override: Optional[str] = None) -> dict:
+        stage_override: Optional[str] = None, mesh=None,
+        topology: str = "flat", pipeline="off",
+        overlap_bwd: str = "off") -> dict:
     """Train until step ``steps``; returns ``{"history", "launches", "d",
     "d_pad", "state", "optimizer", "layout", "start_step",
-    "checkpoint_s"}`` (the seconds of the resume's load and the last
-    save, host clock).
+    "checkpoint_s", "topology", "n_buckets", "overlap_bwd", "plan"}``
+    (``checkpoint_s``: the seconds of the resume's load and the last
+    save, host clock; ``plan``: the compressed exchange's plan name).
 
     ``warmup_steps`` is the manual T_w; ``None`` (or an ``auto`` recipe)
     selects the paper's Sec. 7.1 variance-ratio rule, as in the
     reference driver.  ``batch`` is the global batch, split over the dp
-    ranks of an initialised process group.  ``resume`` starts at the
-    checkpoint's step; the compression-stage step count that drives
-    ``sync_due`` resumes with it (manual T_w; the auto rule's monitor is
-    not checkpointed, as in the reference)."""
+    ranks of an initialised process group.  ``mesh`` (default: one dp
+    axis over the process group) is a ``--mesh`` spelling; ``topology``
+    and ``pipeline`` default to ``"flat"`` and ``"off"``.  ``resume``
+    starts at the checkpoint's step; the compression-stage step count
+    that drives ``sync_due`` resumes with it (manual T_w; the auto rule's
+    monitor is not checkpointed, as in the reference)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     spec = get_optim_recipe(recipe)
@@ -99,29 +168,57 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     if compressor:
         spec = dataclasses.replace(spec, compressor=compressor)
     spec = dataclasses.replace(spec, block_size=block_size)
+    topology, n_buckets, overlap = resolve_schedule(topology, pipeline,
+                                                    overlap_bwd)
     n_dp = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    dp_axes = ("dp",) if n_dp > 1 else ()
-
+    dpm = build_mesh(mesh if mesh is not None else str(n_dp), dev.type)
+    dp_axes, pod_axes, n_inner, n_outer = pod_split(dpm.axes, dpm.sizes) \
+        if n_dp > 1 else ((), (), 1, 1)
+    if topology == "hier" and n_outer == 1:
+        topology = "flat"           # one pod: the reference's step does so
     comp_kwargs = dict(spec.compressor_kwargs or {})
     comp_kwargs.setdefault("block_size", block_size)
     optim = get_optimizer(spec.optimizer, compressor=spec.compressor,
                           compressor_kwargs=comp_kwargs,
                           **(spec.optimizer_kwargs or {}))
     layout = "local" if optim.may_skip_sync else "replicated"
+    hier = topology == "hier"
+    d_pad = flat_dim(cfg, n_dp, block_size)
+    # the bucket count the executor runs (clamped to the alignment units):
+    # it fixes the EF slots' layout that checkpoints re-key
+    n_buckets = len(bucket_sizes_for(d_pad, n_dp, block_size, n_buckets))
+    warm_plan, comp_plan = run_plans(optim, d_pad, dpm.axes, dpm.sizes,
+                                     topology)
+    plan_name = comp_plan.name if n_buckets == 1 else \
+        f"pipe({comp_plan.name})x{n_buckets}"
+    if verbose and rank == 0:
+        print(f"[plan] mesh {'x'.join(map(str, dpm.sizes))} "
+              f"{dpm.axes} | warmup {warm_plan.name} | compressed "
+              f"{plan_name} | overlap-bwd "
+              f"{'on' if overlap and n_buckets > 1 else 'off'}"
+              + (" (needs more than one bucket)"
+                 if overlap and n_buckets == 1 else "")
+              # the buckets of a pipelined plan move the same bytes
+              + f" | wire bytes a rank and step: warmup "
+              f"{warm_plan.wire_send_bytes():.0f}, compressed "
+              f"{comp_plan.wire_send_bytes():.0f}", flush=True)
     params = init_params(cfg, torch.Generator().manual_seed(seed), dev)
     ts = init_train_state(cfg, params, optim, block_size, n_dp, dev,
-                          layout=layout)
+                          layout=layout, n_inner=n_inner if hier else None)
     del params
     slots = optim.state_slots(layout)
-    state_ctx = flat_layout(ts.x.shape[0], n_dp, ts.segs.n)
+    state_ctx = StateLayout(
+        d=d_pad, n_dp=n_dp, n_srv=n_inner if hier else n_dp,
+        n_outer=n_outer if hier else 1, n_segments=ts.segs.n,
+        dp_sizes=dpm.sizes, tp=1)
     shapes = leaf_shapes(cfg)
     start_step, io_s = 0, {}
     if resume:
         t0 = time.perf_counter()
         (params, ts.opt), start_step = load_train_state(
             resume, params_from_flat(ts.x, shapes), ts.opt, slots=slots,
-            ctx=state_ctx, n_buckets=1, block=block_size, rank=rank)
+            ctx=state_ctx, n_buckets=n_buckets, block=block_size, rank=rank)
         with torch.no_grad():
             ts.x[:ts.d].copy_(flat_from_params(params))
         del params
@@ -132,8 +229,9 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     def save(step: int) -> None:
         t0 = time.perf_counter()
         save_train_state(ckpt, params_from_flat(ts.x, shapes), ts.opt, step,
-                         slots=slots, ctx=state_ctx, n_buckets=1,
-                         block=block_size, dp_axes=dp_axes)
+                         slots=slots, ctx=state_ctx, n_buckets=n_buckets,
+                         block=block_size, dp_axes=dpm.axes if n_dp > 1
+                         else ())
         io_s["save"] = time.perf_counter() - t0
 
     stream = SyntheticStream(cfg, InputShape("custom", seq, batch, "train"),
@@ -160,20 +258,25 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
             sync = optim.sync_due(comp_step) if compressed else True
             comp_step += compressed
         batch_t = stream.batch_at(step)
+        over = overlap_applies(stage, sync, n_buckets, overlap)
         t0 = time.perf_counter()
         metrics = train_step(ts, optim, batch_t,
                              lr_schedule(step, lr, lr_warmup), stage,
-                             dp_axes, sync=sync)
+                             dp_axes, sync=sync, pod_axes=pod_axes,
+                             topology=topology,
+                             n_buckets=n_buckets, overlap_bwd=overlap)
         keys = sorted(metrics)
         vals = torch.stack([metrics[k].to(torch.float32) for k in keys])
         host = dict(zip(keys, vals.tolist()))   # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
         if not stage_override:
             switch.observe(step, host)
-        rec = {"step": step, "stage": stage, "sync": sync, "ms": ms, **host}
+        rec = {"step": step, "stage": stage, "sync": sync, "overlap": over,
+               "stage0_in_bwd": ts.stage0_in_bwd, "ms": ms, **host}
         history.append(rec)
         if verbose and rank == 0:
-            print(f"step {step:5d} [{stage:10s}{'' if sync else ' local'}] "
+            print(f"step {step:5d} [{stage:10s}{'' if sync else ' local'}"
+                  f"{' overlap' if over else ''}] "
                   f"loss {rec['loss']:.4f} acc {rec['acc']:.3f} "
                   f"v_l1 {rec['v_l1']:.3e} ({ms:.1f} ms)", flush=True)
         if ckpt and (step + 1) % CKPT_EVERY == 0 and step + 1 < steps:
@@ -181,9 +284,11 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     if ckpt:
         save(steps)
     return {"history": history, "launches": build.launch_counts(),
-            "d": ts.d, "d_pad": flat_dim(cfg, n_dp, block_size),
-            "state": ts, "optimizer": optim, "layout": layout,
-            "start_step": start_step, "checkpoint_s": io_s}
+            "d": ts.d, "d_pad": d_pad, "state": ts, "optimizer": optim,
+            "layout": layout, "start_step": start_step,
+            "checkpoint_s": io_s, "topology": topology,
+            "n_buckets": n_buckets, "overlap_bwd": overlap,
+            "plan": plan_name}
 
 
 def main(argv=None):
@@ -215,6 +320,20 @@ def main(argv=None):
     ap.add_argument("--stage", default=None,
                     choices=[None, "warmup", "compressed"],
                     help="force every step's stage")
+    ap.add_argument("--mesh", default=None,
+                    help="N, Nx1 or PxNx1 (pods x data x model = 1); "
+                         "default: one dp axis over WORLD_SIZE ranks")
+    ap.add_argument("--topology", default="flat",
+                    choices=["flat", "hier", "auto"],
+                    help="hier = the two-level exchange (flat on one pod); "
+                         "auto raises")
+    ap.add_argument("--pipeline", default="off",
+                    help="off or a bucket count N (the pipelined "
+                         "exchange); auto raises")
+    ap.add_argument("--overlap-bwd", default="off",
+                    choices=["off", "on", "auto"],
+                    help="issue each bucket's exchange from inside "
+                         "backward (needs --pipeline > 1); auto raises")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -227,7 +346,9 @@ def main(argv=None):
             block_size=args.block_size, lr=args.lr,
             lr_warmup=args.lr_warmup, seed=args.seed, device=args.device,
             optimizer=args.optimizer, compressor=args.compressor,
-            ckpt=args.ckpt, resume=args.resume, stage_override=args.stage)
+            ckpt=args.ckpt, resume=args.resume, stage_override=args.stage,
+            mesh=args.mesh, topology=args.topology, pipeline=args.pipeline,
+            overlap_bwd=args.overlap_bwd)
     finally:
         if world > 1:
             dist.destroy_process_group()

@@ -126,6 +126,14 @@ class Block(nn.Module):
         self.ffn = nn.ParameterDict(
             {k: nn.Parameter(t) for k, t in _sub(views, "ffn.").items()})
 
+    def forward_params(self) -> List[nn.Parameter]:
+        """The layer's parameters in the order ``forward`` first uses
+        them."""
+        return [self.norm1] + [self.mixer[k] for k in
+                               ("wq", "wk", "wv", "wo")] + \
+            [self.norm2] + [self.ffn[k] for k in ("wg", "wu", "wd")
+                            if k in self.ffn]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         eps = self.cfg.norm_eps
         x = x + attn_forward(self.mixer, rms_norm(x, self.norm1, eps),
@@ -158,6 +166,15 @@ class Transformer(nn.Module):
         self.norm_f = nn.Parameter(views["norm_f"])
         self.w_out = nn.Parameter(views["w_out"])
         self._flat = flat
+
+    def grad_order(self) -> List[nn.Parameter]:
+        """Every parameter in the order backward completes its gradient:
+        the reverse of the order ``loss_fn`` first uses them (a static
+        order, the same on every rank: ``w_out`` first, ``embed`` last)."""
+        fwd = [self.embed]
+        for blk in self.blocks:
+            fwd += blk.forward_params()
+        return list(reversed(fwd + [self.norm_f, self.w_out]))
 
     def bind_grads(self, flat_grad: torch.Tensor) -> None:
         """Point every parameter's ``.grad`` at the view of ``flat_grad`` at

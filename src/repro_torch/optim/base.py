@@ -34,12 +34,15 @@ contiguous ranges of the flat vector, so their sums are one reduction per
 range (a fixed order, no atomics): the card's results are the same from
 run to run, which a bitwise resume needs.
 
-The port's copy of ``repro/optim/base.py``.  Not ported yet: the
-per-bucket gradient ``parts`` and ``n_buckets`` (pipelining), ``pod_axes``
-(the hierarchical topology), the audit probe; ``use_kernel`` /
-``with_kernels`` have no counterpart, since the port routes by device (a
-CUDA tensor takes the kernels).  The port updates nothing in place: both
-stages return the new parameter vector and a new state tree.
+The port's copy of ``repro/optim/base.py``, with ``pod_axes`` (the
+hierarchical topology), ``n_buckets`` (the pipelined exchange) and
+backward overlap's exchange fed bucket by bucket (``start_exchange`` /
+``fold_momentum``; the reference's tuple of gradient parts has no other
+user, so ``update`` takes the full vector).  Not ported yet: the audit
+probe; ``use_kernel`` / ``with_kernels`` have no counterpart, since the
+port routes by device (a CUDA tensor takes the kernels).  The port
+updates nothing in place: both stages return the new parameter vector
+and a new state tree.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ import torch.distributed as dist
 from repro_torch.core import comm
 from repro_torch.kernels.fused_adam import ops as _fused_adam
 from repro_torch.optim.compressors import Compressor, OneBitCompressor
-from repro_torch.plan.executor import _all_gather_into
+from repro_torch.plan.executor import all_gather_into, group_of
 from repro_torch.state.slots import (SlotSpec, StateLayout, StateTree,
                                      ef_errs, init_rank_state)
 
@@ -133,7 +136,7 @@ def _segment_sum(x: torch.Tensor, segs: SegmentInfo,
     s = torch.stack([x[a:b].sum() if b > a else zero
                      for a, b in segs.ranges()])
     if axes:
-        dist.all_reduce(s)
+        dist.all_reduce(s, group=group_of(axes))
     return s
 
 
@@ -319,11 +322,41 @@ class TwoStageOptimizer:
         return new_x, state._replace(m=m, v=v, count=count), stats
 
     # --- compression stage (ONE path, parameterised by the slots) ----------
+    def _ef_slots(self, state: StateTree) -> Tuple[SlotSpec, ...]:
+        """The declared EF slots ``state`` holds (EF slots are the same in
+        every layout, so any layout's declaration serves)."""
+        layout = "zero1" if "master_shard" in state else "replicated"
+        return tuple(s for s in self.state_slots(layout)
+                     if s.ef is not None and s.name in state)
+
+    def fold_momentum(self, state: StateTree, lo: int,
+                      g_part: torch.Tensor) -> torch.Tensor:
+        """The local momentum of the elements ``[lo, lo + len(g_part))``:
+        elementwise, so bitwise that slice of the full-vector fold."""
+        m_prev = state.m[lo:lo + g_part.shape[0]]
+        return self.b1 * m_prev + (1.0 - self.b1) * g_part
+
+    def start_exchange(self, state: StateTree, *,
+                       dp_axes: Sequence[str] = (),
+                       pod_axes: Sequence[str] = (), n_buckets: int = 1,
+                       order_of=None):
+        """The pipelined momentum exchange of ``state``'s next sync step as
+        a :class:`~repro_torch.pipeline.Wavefront` for backward overlap
+        (fed bucket by bucket with :meth:`fold_momentum`, then handed to
+        :meth:`update` as ``exchange``; ``order_of`` as in
+        :func:`repro_torch.core.comm.start_exchange`); None when there is
+        one bucket."""
+        return comm.start_exchange(
+            state.m.shape[0], ef_errs(state, self._ef_slots(state)),
+            dp_axes, pod_axes, self.compressor, n_buckets, order_of)
+
     def update(self, g_local: torch.Tensor, state: StateTree, lr: float,
                *, x: Optional[torch.Tensor] = None,
                dp_axes: Sequence[str] = (),
+               pod_axes: Sequence[str] = (),
                segs: Optional[SegmentInfo] = None,
-               sync: bool = True) -> Tuple[torch.Tensor, StateTree, dict]:
+               sync: bool = True, n_buckets: int = 1,
+               exchange=None) -> Tuple[torch.Tensor, StateTree, dict]:
         """Compressed (or, with ``sync=False``, purely local) momentum
         step preconditioned by the (hook-governed) second moment.
 
@@ -334,6 +367,14 @@ class TwoStageOptimizer:
         every rank's chunk is returned).  The EF slot dict handed to the
         exchange is read off the declared ``ef=`` fields.
 
+        With ``pod_axes`` the exchange runs the hierarchical schedule
+        (``dp_axes`` within the pod, ``pod_axes`` across pods);
+        ``n_buckets > 1`` runs it through the pipelined executor, bitwise
+        the serial one.  ``exchange`` is a wavefront from
+        :meth:`start_exchange` that backward overlap has fed every bucket
+        of (each folded by :meth:`fold_momentum`); ``g_local`` is then
+        read for the stats only.
+
         A ``sync=False`` ("0-bit") step moves no bytes and applies no
         model update: the local gradient folds into the per-rank momentum,
         and the next synchronised step applies the dp-mean EMA of every
@@ -341,10 +382,11 @@ class TwoStageOptimizer:
         on every dp rank while the per-rank momentum diverges (hence the
         ``local`` layout)."""
         sharded = "master_shard" in state
+        all_axes = tuple(pod_axes) + tuple(dp_axes)
         lr = _f32(lr)
-        m_local = self.b1 * state.m + (1.0 - self.b1) * g_local
         if not sync:
-            x_full = self._full_params(state, x, dp_axes)
+            m_local = self.b1 * state.m + (1.0 - self.b1) * g_local
+            x_full = self._full_params(state, x, all_axes)
             stats = self._stats(
                 v_l1=(state.v_shard if sharded else state.v).abs().sum(),
                 grad_norm=torch.linalg.vector_norm(g_local),
@@ -353,17 +395,21 @@ class TwoStageOptimizer:
             return x_full, state._replace(m=m_local,
                                           count=state.count + 1), stats
 
-        ef_slots = tuple(s for s in self.state_slots(
-            "zero1" if sharded else "replicated")
-            if s.ef is not None and s.name in state)
-        m_bar, errs = comm.compressed_exchange(
-            m_local, ef_errs(state, ef_slots), dp_axes, self.compressor)
+        ef_slots = self._ef_slots(state)
+        if exchange is not None:
+            m_bar, errs = exchange.finish()
+        else:
+            m_local = self.b1 * state.m + (1.0 - self.b1) * g_local
+            m_bar, errs = comm.compressed_exchange(
+                m_local, ef_errs(state, ef_slots), dp_axes, pod_axes,
+                self.compressor, n_buckets=n_buckets)
+            del m_local
         count = state.count + 1
 
         if sharded:
-            n = comm.axis_size(dp_axes)
+            n = comm.axis_size(all_axes)
             chunk = m_bar.shape[0] // max(n, 1)
-            lo = dist.get_rank() * chunk if dp_axes else 0
+            lo = comm.axis_index(all_axes) * chunk
             my_mbar = m_bar[lo:lo + chunk]
             v, v_step = self._update_v(state.v_shard, state.v_step,
                                        state.m[lo:lo + chunk], my_mbar,
@@ -373,7 +419,7 @@ class TwoStageOptimizer:
             if segs is not None:
                 segs = segs.window(lo, lo + chunk)
             # each rank holds one chunk: segment norms sum over dp
-            norm_axes = tuple(dp_axes)
+            norm_axes = all_axes
         else:
             if x is None:
                 raise ValueError("update() needs x for the replicated and "
@@ -397,7 +443,7 @@ class TwoStageOptimizer:
         repl.update(m=m_bar, scale=scale, count=count, v_step=v_step)
         if sharded:
             repl.update(v_shard=v, master_shard=new_master)
-            x_full = self._gather_replica(new_master, dp_axes)
+            x_full = self._gather_replica(new_master, all_axes)
         else:
             repl.update(v=v)
             x_full = new_master
@@ -412,14 +458,15 @@ class TwoStageOptimizer:
     def _gather_replica(master_shard: torch.Tensor,
                         dp_axes: Sequence[str]) -> torch.Tensor:
         """The bf16 parameter replica: every rank's master chunk, rounded
-        to bf16, gathered in rank order."""
+        to bf16, gathered in rank order over ``dp_axes`` (all of them:
+        the pod axes lead)."""
         shard = master_shard.to(torch.bfloat16)
         if not dp_axes:
             return shard
         n = comm.axis_size(dp_axes)
         out = torch.empty((n * shard.shape[0],), dtype=shard.dtype,
                           device=shard.device)
-        _all_gather_into(out, shard)
+        all_gather_into(out, shard, group=group_of(dp_axes))
         return out
 
     def _full_params(self, state: StateTree, x,

@@ -18,7 +18,7 @@ device, as the reference computes it outside any Pallas kernel).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -34,20 +34,31 @@ class Compressor:
 
     name: str = "?"
     lossless: bool = False
+    # dense = every coordinate survives compression (possibly quantised);
+    # a sparse compressor (dense=False) drops coordinates and needs error
+    # feedback on every lossy hop (plan.schedules.needs_outer_ef)
+    dense: bool = True
 
-    def ef_compress(self, x: torch.Tensor, err: torch.Tensor
+    def ef_compress(self, x: torch.Tensor, err: torch.Tensor,
+                    out: Optional[torch.Tensor] = None
                     ) -> Tuple[Payload, torch.Tensor]:
-        """Compress ``x + err``; return (payload, exact new residual)."""
+        """Compress ``x + err``; return (payload, exact new residual).
+        ``out``, when given, receives the residual (it must not overlap
+        ``x`` or ``err``)."""
         buf = x + err
         payload = self.compress(buf)
         if self.lossless:
-            return payload, torch.zeros_like(buf)
-        return payload, buf - self.decompress(payload)
+            return payload, (torch.zeros_like(buf) if out is None
+                             else out.zero_())
+        return payload, torch.sub(buf, self.decompress(payload), out=out)
 
     def compress(self, x: torch.Tensor) -> Payload:
         raise NotImplementedError
 
-    def decompress(self, payload: Payload) -> torch.Tensor:
+    def decompress(self, payload: Payload,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The ``(d,)`` f32 vector ``payload`` represents, written into
+        ``out`` when given."""
         raise NotImplementedError
 
     def wire_specs(self, d: int) -> Tuple[WireSpec, ...]:
@@ -67,14 +78,14 @@ class OneBitCompressor(Compressor):
     def compress(self, x):
         return _ops.compress(x, self.block_size)
 
-    def ef_compress(self, x, err):
-        packed, scales, new_err = _ops.ef_compress_fused(x, err,
-                                                         self.block_size)
+    def ef_compress(self, x, err, out=None):
+        packed, scales, new_err = _ops.ef_compress_fused(
+            x, err, self.block_size, out=out)
         return (packed, scales), new_err
 
-    def decompress(self, payload):
+    def decompress(self, payload, out=None):
         packed, scales = payload
-        return _ops.decompress(packed, scales, self.block_size)
+        return _ops.decompress(packed, scales, self.block_size, out=out)
 
     def wire_specs(self, d):
         return (WireSpec("uint8", (d // 8,)),
@@ -90,8 +101,8 @@ class IdentityCompressor(Compressor):
     def compress(self, x):
         return (x,)
 
-    def decompress(self, payload):
-        return payload[0]
+    def decompress(self, payload, out=None):
+        return payload[0] if out is None else out.copy_(payload[0])
 
     def wire_specs(self, d):
         return (WireSpec("float32", (d,)),)
@@ -114,6 +125,7 @@ class TopKCompressor(Compressor):
     block_size: int = DEFAULT_BLOCK
     ratio: int = 32                  # keep 1/ratio of the elements
     name = "topk"
+    dense = False
 
     def __post_init__(self):
         if self.block_size % self.ratio:
@@ -138,15 +150,17 @@ class TopKCompressor(Compressor):
         vals = torch.gather(xb, 1, idx)                         # (nb, k)
         return vals.reshape(-1), idx.to(self.index_dtype).reshape(-1)
 
-    def decompress(self, payload):
+    def decompress(self, payload, out=None):
         vals, idx = payload
         nb = vals.shape[0] // self.k
-        out = torch.zeros((nb, self.block_size), dtype=vals.dtype,
-                          device=vals.device)
+        if out is None:
+            out = torch.empty(nb * self.block_size, dtype=vals.dtype,
+                              device=vals.device)
+        dense = out.zero_().view(nb, self.block_size)
         # the kept indices of a block are distinct: no accumulation order
-        out.scatter_(1, idx.reshape(nb, self.k).to(torch.int64),
-                     vals.reshape(nb, self.k))
-        return out.reshape(-1)
+        dense.scatter_(1, idx.reshape(nb, self.k).to(torch.int64),
+                       vals.reshape(nb, self.k))
+        return out
 
     def wire_specs(self, d):
         kept = (d // self.block_size) * self.k

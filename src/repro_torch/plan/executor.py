@@ -9,28 +9,69 @@ moves the raw f32 value.  Before anything crosses the wire the executor
 checks that the arrays the compressor hands it match the op's declared
 ``payload`` WireSpecs.
 
-An op whose ``axes`` is non-empty runs over the default process group:
-``all_to_all_single`` per payload leaf, then one decompress of the n
-received chunks and their f32 mean in rank order; ``all_gather`` into one
-tensor per leaf, then decompress; ``all_reduce`` (sum, then the division
-by n).  With empty ``axes`` the compress/decompress round trip still runs,
-so single-rank numerics match the distributed path.
+Each op runs in two halves, so that a pipelined executor can keep one
+bucket's collective in flight while it compresses the next:
+
+  * :func:`issue_op` — the compress point, then the collective launched
+    with ``async_op=True``;
+  * :func:`complete_op` — ``work.wait()``, then the decompress and the
+    combine.
+
+:func:`execute_op` (and so the serial ``execute_plan``) calls the two back
+to back.  An op runs on the process group its ``axes`` name in the map
+:func:`set_groups` holds (``repro_torch.launch.mesh`` builds it from the
+mesh); without a map, ``("dp",)`` is the default group.  ``all_to_all``
+moves each payload leaf, then one decompress of the n received chunks and
+their f32 mean in rank order; ``all_gather`` gathers into one tensor per
+leaf, then decompresses; ``all_reduce`` sums, then divides by n.  With
+empty ``axes`` the compress/decompress round trip still runs, so
+single-rank numerics match the distributed path.
 
 Neither gloo nor NCCL has a 16-bit integer type: a uint16 leaf (the top-k
 indices) crosses the wire as its uint8 byte view, the same bytes, and is
 viewed back on arrival.  A leaf's byte view chunks exactly as the leaf
-does, so the all_to_all and all_gather slicing is unchanged.
+does, so the all_to_all and all_gather slicing is unchanged.  Every
+tensor handed to an async collective (the sent byte views and the receive
+buffers) stays referenced by its :class:`Issued` record until
+``complete_op`` has waited on it, and nothing writes to it before then.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.plan.ir import AllGather, AllReduce, AllToAll, CommPlan
+from repro_torch.plan.ir import (AllGather, AllReduce, AllToAll,
+                                 CollectiveOp, CommPlan)
 
 Errs = Dict[str, torch.Tensor]
+
+# axes -> process group (None = the default group); see set_groups
+_GROUPS: Dict[Tuple[str, ...], Optional[object]] = {}
+
+
+def set_groups(groups: Mapping[Tuple[str, ...], Optional[object]]
+               ) -> Dict[Tuple[str, ...], Optional[object]]:
+    """Install the axes -> ``ProcessGroup`` map every op reads; returns
+    the previous map."""
+    global _GROUPS
+    prev = _GROUPS
+    _GROUPS = {tuple(k): v for k, v in groups.items()}
+    return prev
+
+
+def group_of(axes) -> Optional[object]:
+    """The process group of mesh ``axes`` (None = the default group)."""
+    axes = tuple(axes)
+    if axes in _GROUPS:
+        return _GROUPS[axes]
+    if not _GROUPS and axes == ("dp",):
+        return None
+    raise KeyError(f"no process group for mesh axes {axes}; the mesh map "
+                   f"holds {sorted(_GROUPS)} (repro_torch.launch.mesh"
+                   ".build_mesh installs it)")
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -46,10 +87,20 @@ def _check_payload(op, payload) -> None:
             "— the compressor's wire_specs() and compress() disagree")
 
 
-def _compress(op, comp, value: torch.Tensor, errs: Errs
+def _out_kw(out: Optional[torch.Tensor]) -> dict:
+    return {} if out is None else {"out": out}
+
+
+def _into(out: Optional[torch.Tensor], value: torch.Tensor) -> torch.Tensor:
+    return value if out is None else out.copy_(value)
+
+
+def _compress(op, comp, value: torch.Tensor, errs: Errs,
+              err_out: Optional[torch.Tensor] = None
               ) -> Tuple[Tuple[torch.Tensor, ...], Errs]:
     if op.err_slot is not None:
-        payload, new_err = comp.ef_compress(value, errs[op.err_slot])
+        payload, new_err = comp.ef_compress(value, errs[op.err_slot],
+                                            **_out_kw(err_out))
         errs = dict(errs)
         errs[op.err_slot] = new_err
     else:
@@ -64,62 +115,97 @@ def _on_wire(p: torch.Tensor) -> torch.Tensor:
     return p.view(torch.uint8) if p.dtype == torch.uint16 else p
 
 
-def _all_gather_into(out: torch.Tensor, inp: torch.Tensor) -> None:
+def all_gather_into(out: torch.Tensor, inp: torch.Tensor, group=None,
+                    async_op: bool = False):
+    """``out`` = every rank's ``inp`` of ``group`` in rank order."""
     # all_gather_single is the newer name of all_gather_into_tensor
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    fn(out, inp)
+    return fn(out, inp, group=group, async_op=async_op)
 
 
-def _exec_all_to_all(op: AllToAll, comp, value, errs):
-    payload, errs = _compress(op, comp, value, errs)
+@dataclasses.dataclass
+class Issued:
+    """An op between its two halves: the value or payload in flight, the
+    receive buffers (one per payload leaf, with the leaf's dtype), the
+    collectives' work handles and the EF slots after the compress point."""
+
+    op: CollectiveOp
+    comp: object
+    errs: Errs
+    payload: Tuple[torch.Tensor, ...] = ()
+    recv: Tuple[Tuple[torch.Tensor, torch.dtype], ...] = ()
+    sent: Tuple[torch.Tensor, ...] = ()
+    works: Tuple[object, ...] = ()
+    value: Optional[torch.Tensor] = None
+
+
+def issue_op(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
+             err_out: Optional[torch.Tensor] = None) -> Issued:
+    """First half of ``op``: its compress point, then its collective
+    launched asynchronously (nothing launched with empty ``axes``).
+    ``err_out``, when given, receives the op's new EF residual."""
+    if isinstance(op, AllReduce):
+        if not op.axes:
+            return Issued(op, comp, errs, value=value)
+        value = value.clone()
+        work = dist.all_reduce(value, group=group_of(op.axes),
+                               async_op=True)
+        return Issued(op, comp, errs, value=value, works=(work,))
+    payload, errs = _compress(op, comp, value, errs, err_out)
     if not op.axes:
-        return comp.decompress(payload), errs
-    recv = []
+        return Issued(op, comp, errs, payload=payload)
+    group = group_of(op.axes)
+    recv, sent, works = [], [], []
     for p in payload:
         w = _on_wire(p)
-        r = torch.empty_like(w)
-        dist.all_to_all_single(r, w)
-        recv.append(r.view(p.dtype))
+        if isinstance(op, AllToAll):
+            r = torch.empty_like(w)
+            works.append(dist.all_to_all_single(r, w, group=group,
+                                                async_op=True))
+        else:
+            r = torch.empty((op.n * w.shape[0],), dtype=w.dtype,
+                            device=w.device)
+            works.append(all_gather_into(r, w, group=group, async_op=True))
+        recv.append((r, p.dtype))
+        sent.append(w)
+    return Issued(op, comp, errs, recv=tuple(recv), sent=tuple(sent),
+                  works=tuple(works))
+
+
+def complete_op(iss: Issued, out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Errs]:
+    """Second half: wait for the collective, then decompress and combine
+    (into ``out`` when given).  Returns (value, errs)."""
+    for w in iss.works:
+        w.wait()
+    op, comp = iss.op, iss.comp
+    if isinstance(op, AllReduce):
+        value = iss.value
+        if op.axes and op.reduce == "mean":
+            return torch.div(value, op.n, out=out), iss.errs
+        return _into(out, value), iss.errs
+    if not op.axes:
+        return comp.decompress(iss.payload, **_out_kw(out)), iss.errs
+    payload = tuple(r.view(dt) for r, dt in iss.recv)
+    if isinstance(op, AllGather):
+        return comp.decompress(payload, **_out_kw(out)), iss.errs
     # chunk j of every leaf came from rank j: the concatenation is itself a
     # valid payload of n * chunk elements (chunks are block-aligned), so
     # one decompress covers all n chunks
-    vals = comp.decompress(tuple(recv)).reshape(op.n, -1)
+    vals = comp.decompress(payload).reshape(op.n, -1)
     acc = vals[0]
     for j in range(1, op.n):        # rank order, as jnp.mean(vals, axis=0)
         acc = acc + vals[j]
-    value = acc / op.n if op.combine == "mean" else acc
-    return value, errs
+    if op.combine == "mean":
+        return torch.div(acc, op.n, out=out), iss.errs
+    return _into(out, acc), iss.errs
 
 
-def _exec_all_gather(op: AllGather, comp, value, errs):
-    payload, errs = _compress(op, comp, value, errs)
-    if op.axes:
-        out = []
-        for p in payload:
-            w = _on_wire(p)
-            o = torch.empty((op.n * w.shape[0],), dtype=w.dtype,
-                            device=w.device)
-            _all_gather_into(o, w)
-            out.append(o.view(p.dtype))
-        payload = tuple(out)
-    return comp.decompress(payload), errs
-
-
-def _exec_all_reduce(op: AllReduce, comp, value, errs):
-    if op.axes:
-        value = value.clone()
-        dist.all_reduce(value)
-        if op.reduce == "mean":
-            value = value / op.n
-    return value, errs
-
-
-_EXEC = {
-    AllToAll: _exec_all_to_all,
-    AllGather: _exec_all_gather,
-    AllReduce: _exec_all_reduce,
-}
+def execute_op(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs
+               ) -> Tuple[torch.Tensor, Errs]:
+    """Run one op: :func:`issue_op` then :func:`complete_op`."""
+    return complete_op(issue_op(op, comp, value, errs))
 
 
 def execute_plan(plan: CommPlan, comp, value: torch.Tensor,
@@ -134,5 +220,5 @@ def execute_plan(plan: CommPlan, comp, value: torch.Tensor,
     if tuple(value.shape) != (plan.d,):
         raise ValueError(f"value shape {tuple(value.shape)} != ({plan.d},)")
     for op in plan.ops:
-        value, errs = _EXEC[type(op)](op, comp, value, errs)
+        value, errs = execute_op(op, comp, value, errs)
     return value, errs

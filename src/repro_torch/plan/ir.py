@@ -1,5 +1,6 @@
 """CommPlan — the declarative IR of the collective schedules (the subset
-the flat Fig. 3 schedule and the warmup all-reduce need).
+the flat Fig. 3 schedule, the hierarchical two-level schedule and the
+warmup all-reduce need).
 
 A :class:`CommPlan` is a straight-line sequence of typed collective ops.
 Every op is annotated with
@@ -8,13 +9,13 @@ Every op is annotated with
                    (dtype, shape) pairs per rank: exactly the compressor's
                    wire format (``Compressor.wire_specs``), which the
                    executor asserts against what the compressor hands it;
-  * ``axes``     — the data-parallel axis the op runs over: ``("dp",)`` is
-                   the default ``torch.distributed`` process group, ``()``
-                   a degenerate single group, executed as a local round
-                   trip;
+  * ``axes``     — the mesh axes the op runs over, which the executor
+                   maps to a ``torch.distributed`` process group
+                   (``repro_torch.launch.mesh``); ``()`` is a degenerate
+                   single group, executed as a local round trip;
   * ``n``        — the number of ranks on those axes;
-  * ``tier``     — ``"intra"`` or ``"cross"`` (a cost annotation the
-                   executor ignores);
+  * ``tier``     — ``"intra"`` or ``"cross"`` (the link the op crosses:
+                   a cost annotation that both executors ignore);
   * ``err_slot`` — the error-feedback buffer consumed and produced at the
                    op's compress point (``None`` = plain compression).
 """
@@ -64,6 +65,24 @@ class CollectiveOp:
     def kind(self) -> str:
         return type(self).__name__
 
+    @property
+    def payload_bytes(self) -> int:
+        """Per-rank operand bytes (what the rank hands the collective)."""
+        return sum(ws.nbytes for ws in self.payload)
+
+    @property
+    def wire_send_bytes(self) -> float:
+        """Bytes one rank puts on the wire (ring/pairwise)."""
+        raise NotImplementedError
+
+    @property
+    def hlo_bytes(self) -> float:
+        """Collective bytes as the reference's roofline counts them
+        (all-to-all: 1x operand; all-gather: 1x result; all-reduce: 2x
+        operand), kept so pipelined and serial plans can be held to the
+        same totals."""
+        raise NotImplementedError
+
     def validate(self) -> None:
         if self.tier not in TIERS or self.n < 1 or self.d_in < 1:
             raise ValueError(f"invalid op {self}")
@@ -85,6 +104,14 @@ class AllToAll(CollectiveOp):
     def d_out(self) -> int:
         return self.d_in // max(self.n, 1)
 
+    @property
+    def wire_send_bytes(self) -> float:
+        return self.payload_bytes * (self.n - 1) / max(self.n, 1)
+
+    @property
+    def hlo_bytes(self) -> float:
+        return float(self.payload_bytes)
+
     def validate(self) -> None:
         super().validate()
         if self.combine not in ("mean", "sum"):
@@ -104,12 +131,30 @@ class AllGather(CollectiveOp):
     def d_out(self) -> int:
         return self.d_in * max(self.n, 1)
 
+    @property
+    def wire_send_bytes(self) -> float:
+        # ring all-gather: each rank forwards its chunk n-1 times
+        return float(self.payload_bytes * (self.n - 1))
+
+    @property
+    def hlo_bytes(self) -> float:
+        return float(self.payload_bytes * max(self.n, 1))
+
 
 @dataclasses.dataclass(frozen=True)
 class AllReduce(CollectiveOp):
     """Uncompressed reduce over ``axes`` (the warmup exchange)."""
 
     reduce: str = "mean"
+
+    @property
+    def wire_send_bytes(self) -> float:
+        # ring: reduce-scatter + all-gather, each (n-1)/n of the buffer
+        return 2.0 * self.payload_bytes * (self.n - 1) / max(self.n, 1)
+
+    @property
+    def hlo_bytes(self) -> float:
+        return 2.0 * self.payload_bytes
 
     def validate(self) -> None:
         super().validate()
@@ -144,3 +189,23 @@ class CommPlan:
                                  f"d_in={op.d_in}, previous op left d={d}")
             d = op.d_out
         return self
+
+    def hlo_bytes(self, tier: Optional[str] = None) -> float:
+        return sum(op.hlo_bytes for op in self.ops
+                   if tier is None or op.tier == tier)
+
+    def wire_send_bytes(self, tier: Optional[str] = None) -> float:
+        """Bytes one rank puts on the wire executing the plan."""
+        return sum(op.wire_send_bytes for op in self.ops
+                   if tier is None or op.tier == tier)
+
+    def describe(self) -> str:
+        lines = [f"CommPlan {self.name!r} (d={self.d})"]
+        for op in self.ops:
+            leaves = ", ".join(f"{w.dtype}{list(w.shape)}"
+                               for w in op.payload)
+            ef = f" ef={op.err_slot}" if op.err_slot else ""
+            lines.append(
+                f"  {op.kind:13s} axes={op.axes} n={op.n} tier={op.tier}"
+                f" d={op.d_in}->{op.d_out} [{leaves}]{ef}")
+        return "\n".join(lines)

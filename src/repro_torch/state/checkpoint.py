@@ -28,7 +28,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint.io import load_meta, load_pytree, save_pytree
 from repro_torch.convert import (params_from_jax, params_to_jax,
                                  state_from_global, state_to_global)
-from repro_torch.plan.executor import _all_gather_into
+from repro_torch.plan.executor import all_gather_into
 from repro_torch.state.layout import from_canonical, to_canonical
 from repro_torch.state.slots import (SlotSpec, StateLayout, StateTree,
                                      global_shapes)
@@ -59,7 +59,7 @@ def _rank_states(state: StateTree, slots: Sequence[SlotSpec],
             t = state[s.name].contiguous()
             out = torch.empty((n * t.shape[0],), dtype=t.dtype,
                               device=t.device)
-            _all_gather_into(out, t)
+            all_gather_into(out, t)
             per_rank[s.name] = out.view(n, -1)
     return [StateTree({k: per_rank[k][r] if k in per_rank else v
                        for k, v in state.items()}) for r in range(n)]

@@ -16,10 +16,9 @@ slots, else absent).  :func:`ef_element_map` writes that map down once.
 serving rank ``r`` holds the residual of global element ``r*(d/n_srv) +
 p``.  :func:`to_canonical` / :func:`from_canonical` permute a saved global
 state between the run layout of any bucket count and that canonical form,
-a host-side numpy reindexing.  The port runs one bucket (the pipelined
-executor is a later slice), where the keying is the identity; it is
-ported whole so that the port's checkpoints and layout manifest are the
-reference's.
+a host-side numpy reindexing.  Checkpoints store the canonical keying,
+so a run resumes under any ``--pipeline`` bucket count; the port's
+checkpoints and layout manifest are the reference's.
 
 The port's copy of ``repro/state/layout.py`` (numpy only).
 """
@@ -37,21 +36,12 @@ from repro_torch.state.slots import (SlotSpec, StateLayout, StateTree,
 
 def bucket_sizes_for(d: int, n_total: int, block: int,
                      n_buckets: int) -> Tuple[int, ...]:
-    """The bucket partition a run with these parameters executes: ``d``
-    split into up to ``n_buckets`` buckets, each a multiple of ``n_total *
-    block``, the remainder units going to the trailing buckets (the
-    reference's ``Bucketer.for_exchange``)."""
+    """The bucket partition a run with these parameters executes: the
+    pipelined executor's own (``Bucketer.for_exchange``)."""
     if n_buckets <= 1:
         return (d,)
-    align = max(n_total, 1) * max(block, 1)
-    assert d >= 1 and d % align == 0, (
-        f"bucketed exchange needs d ({d}) divisible by the alignment unit "
-        f"n_total*block ({align})")
-    units = d // align
-    n = min(n_buckets, units)
-    base, rem = divmod(units, n)
-    return (tuple(base * align for _ in range(n - rem))
-            + tuple((base + 1) * align for _ in range(rem)))
+    from repro_torch.pipeline.bucket import Bucketer
+    return Bucketer.for_exchange(d, n_total, block, n_buckets).sizes
 
 
 def ef_element_map(d: int, sizes: Sequence[int], n_srv: int,

@@ -92,7 +92,7 @@ def payloads_main(rank: int, world: int, workdir: str, block: int,
                 torch.from_numpy(data["xs"][rank]).to(dev),
                 {"worker": torch.from_numpy(data["werrs"][rank]).to(dev),
                  "server": torch.from_numpy(data["serrs"][rank]).to(dev)},
-                ("dp",), comp)
+                ("dp",), (), comp)
             out[f"{name}_out"] = m.cpu().numpy()
             out[f"{name}_werr"] = errs["worker"].cpu().numpy()
             out[f"{name}_serr"] = errs["server"].cpu().numpy()

@@ -6,6 +6,12 @@ the port only, so it runs on a machine without JAX:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
+The NCCL tests need 2 (the payload exchange) or 4 cards (the
+hierarchical exchange and training on a 2 x 2 pod x data mesh) and skip
+with fewer; their ranks are spawned processes (``_torch_exchange_worker``,
+``_torch_hier_worker``), one card each, compared with the same runs over
+gloo on the CPU or with each other.
+
 Tolerances: packed sign bits and decompress bitwise; scales rtol 1e-6 and
 new_err rtol 1e-5 / atol 1e-6 (the block sum runs in another order than
 torch's mean); Adam rtol 1e-5 / atol 5e-7 (tests/test_kernels.py's);
@@ -78,6 +84,34 @@ def test_decompress_bitwise_at_ragged_lengths(card, block, n_blocks, offset):
     got = onebit_kernel.decompress(buf[offset:], sc, block)
     assert build.launch_counts()["decompress"] == before + 1
     assert torch.equal(got, onebit_ref.decompress(pk, sc, block))
+
+
+@pytest.mark.parametrize("block", [8, 512, 4096])
+def test_onebit_kernels_write_into_slices(card, block):
+    """``out=`` a slice of a larger tensor at a block offset (as the
+    pipelined executor hands them a bucket's slice): bitwise the calls
+    that allocate, each one launch; an ``out`` off the 16-byte alignment
+    of decompress's float4 stores, or of the wrong length, is refused."""
+    d = 8 * block
+    x, err = _randn(card, 7, d), _randn(card, 8, d, 0.1)
+    pk, sc, ne = onebit_kernel.ef_compress_fused(x, err, block)
+    big = torch.full((3 * d,), 7.0, device=card)
+    dst = big[block:block + d]
+    before = build.launch_counts()
+    pk2, sc2, ne2 = onebit_kernel.ef_compress_fused(x, err, block, out=dst)
+    dec = onebit_kernel.decompress(pk, sc, block, out=big[2 * d:])
+    after = build.launch_counts()
+    assert ne2.data_ptr() == dst.data_ptr() and torch.equal(ne2, ne)
+    assert torch.equal(pk2, pk) and torch.equal(sc2, sc)
+    assert dec.data_ptr() == big[2 * d:].data_ptr()
+    assert torch.equal(dec, onebit_kernel.decompress(pk, sc, block))
+    assert torch.equal(big[:block], torch.full((block,), 7.0, device=card))
+    assert after["ef_compress"] == before["ef_compress"] + 1
+    assert after["decompress"] == before["decompress"] + 1
+    with pytest.raises(ValueError):
+        onebit_kernel.decompress(pk, sc, block, out=big[1:1 + d])
+    with pytest.raises(ValueError):
+        onebit_kernel.ef_compress_fused(x, err, block, out=big[:d - 8])
 
 
 def test_onebit_kernel_packs_nan_as_zero(card):
@@ -264,3 +298,106 @@ def test_nccl_exchange_carries_both_payloads(card, tmp_path):
         for k in ("onebit_werr", "onebit_serr"):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
                                        atol=1e-6, err_msg=k)
+
+
+def _four_cards():
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards: the 2 x 2 (pod x data) mesh is one rank "
+                    "a card")
+
+
+def test_nccl_hier_exchange_matches_gloo(card, tmp_path):
+    """The hierarchical exchange over NCCL on a 2 x 2 (pod x data) mesh of
+    four cards: three chained exchanges per compressor (``onebit`` with
+    EF-free cross-pod legs, ``topk`` with the ``outer`` / ``outer_ag``
+    slots, ``identity`` with a cross-pod all-reduce), serial and over 3
+    buckets.  Every rank's output and EF slots equal the same run over
+    gloo on the CPU: top-k and identity bitwise (copies, sums of two);
+    1-bit outputs (+-scale) at the scales' rtol 1e-6, its residuals at
+    rtol 1e-5 / atol 1e-6 (the kernel's block means sum in another order
+    than torch's)."""
+    import torch.multiprocessing as mp
+    import _torch_hier_worker as hw
+    _four_cards()
+    block = 4096
+    d = 7 * 4 * block
+    rng = np.random.default_rng(5)
+    np.savez(tmp_path / "inputs.npz",
+             xs=rng.standard_normal((hw.EXCHANGE_STEPS, 4, d))
+             .astype(np.float32))
+    for backend in ("nccl", "gloo"):
+        mp.start_processes(hw.exchange_main,
+                           args=(4, str(tmp_path), block, backend),
+                           nprocs=4, start_method="spawn")
+    for r in range(4):
+        got = np.load(tmp_path / f"nccl{r}.npz")
+        want = np.load(tmp_path / f"gloo{r}.npz")
+        assert bool(got["topk_no_outer_raised"])
+        for k in want.files:
+            if k.startswith("onebit") and k.endswith("_out"):
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
+                                           err_msg=k)
+            elif k.startswith("onebit"):
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                           atol=1e-6, err_msg=k)
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# full-width BERT-Large on four cards (one rank a card, 16 x 128 a rank)
+FOUR_CARD = dict(arch="bert-large", block=4096, seq=128, batch=64, steps=6,
+                 warmup=3, mesh="2x2x1", digest=True)
+FOUR_CARD_NB = 2
+
+
+def test_nccl_hier_training_pipelined_bitwise_serial(card, tmp_path):
+    """1-bit Adam 3 + 3 steps of full-width BERT-Large on four NCCL ranks as
+    2 pods x 2, ``topology="hier"``: with 2 buckets and backward overlap
+    the run is bitwise the serial one on every rank (losses, parameters,
+    ``m``, ``worker_err``: SHA-256 of each), the parameters are bitwise
+    equal across ranks, and each rank launches ``ef_compress`` and
+    ``decompress`` 4 x NB times a compressed step (worker EF, the two
+    cross-pod legs' compress, server EF; four decompresses) and
+    ``adam_step`` once a warmup step; every stage 0 but the embedding's
+    bucket's issues before the last gradient lands.  Prints each run's
+    step walls, and those of the flat exchange on the same cards: one
+    machine's NVLink carries both tiers, so the hierarchical schedule's
+    saving of cross-pod bytes has no slow link to show on."""
+    import json
+    import torch.multiprocessing as mp
+    import _torch_hier_worker as hw
+    _four_cards()
+    runs = {"hier_serial": dict(FOUR_CARD, topology="hier", n_buckets=1,
+                                overlap=False),
+            "hier_pipe": dict(FOUR_CARD, topology="hier",
+                              n_buckets=FOUR_CARD_NB, overlap=True),
+            "flat_serial": dict(FOUR_CARD, topology="flat", n_buckets=1,
+                                overlap=False)}
+    with open(tmp_path / "runs.json", "w") as f:
+        json.dump(runs, f)
+    mp.start_processes(hw.steps_main, args=(4, str(tmp_path), "nccl"),
+                       nprocs=4, start_method="spawn")
+    ranks = [np.load(tmp_path / f"steps{r}.npz") for r in range(4)]
+    w = FOUR_CARD["warmup"]
+    for r, got in enumerate(ranks):
+        for k in ("loss", "x", "opt_m", "opt_worker_err", "opt_v"):
+            assert got[f"hier_pipe__{k}"].tolist() == \
+                got[f"hier_serial__{k}"].tolist(), (r, k)
+        assert got["hier_pipe__x"].tolist() == ranks[0]["hier_pipe__x"]\
+            .tolist()
+        assert np.isfinite(got["hier_serial__loss"]).all()
+        # the bucket holding the embedding, whose gradient lands last,
+        # issues last: every other stage 0 issues inside backward
+        assert got["hier_pipe__stage0_in_bwd"].tolist() == [0] * w + [
+            FOUR_CARD_NB - 1] * (FOUR_CARD["steps"] - w), r
+        for name, nb in (("hier_serial", 1), ("hier_pipe", FOUR_CARD_NB)):
+            launches = got[f"{name}__launches"].tolist()
+            assert launches == [[1, 0, 0]] * w + [[0, 4 * nb, 4 * nb]] * (
+                FOUR_CARD["steps"] - w), (r, name, launches)
+        assert got["flat_serial__launches"].tolist()[w:] == [[0, 2, 2]] * (
+            FOUR_CARD["steps"] - w)
+    for name in runs:
+        print(f"[nccl4] {name}: step ms by rank "
+              + json.dumps([got[f"{name}__ms"].round(1).tolist()
+                            for got in ranks])
+              + f"; losses {ranks[0][name + '__loss'].tolist()}")
