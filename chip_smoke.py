@@ -73,10 +73,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                tensor-core flash kernel, none of the SIMT one).
  10. serve-profile — one prefill and one decode step under torch.profiler
                (measurement only).
+ 11. oracles — the functional 1-bit Adam oracles
+               (``repro_torch.core.onebit_adam``) against the registry
+               ``onebit_adam`` (built from the same ``OneBitAdamConfig``) at
+               full BERT-Large (batch 16 x seq 128, block 4096, d_pad =
+               364,564,480, seed 0): 3 warmup + 3 compressed steps, each
+               step's flat f32 gradient from the main path's model, both
+               updates from the same state; x, m, v, worker_err and
+               server_err bitwise in the compressed stage, at rtol 1e-6 of
+               their terms in the warmup (the fused kernel squares g in
+               another order); then one zero1 step against the registry's
+               zero1 update (bitwise); launch counts set to 0 around the
+               oracle's own updates (0 / 6 / 6, zero1 0 / 2 / 2); CUDA-event
+               ms of each update; peak memory.
+ 12. claims — the paper's claim benchmarks on the card at the reference's
+               sizes: ``block_size_ablation.run``,
+               ``variance_stability.run(segments=8)`` and
+               ``convergence.run`` (nine 160-step runs of the reduced
+               internlm2-1.8b), then the variance system phase at full
+               BERT-Large (b2 0.97, 80 warmup steps, batch 16 x seq 128,
+               block 4096, lr 1e-4): the step where the Sec. 7.1 rule
+               fires and the ratio.  Each part's launch counts set to 0
+               before and read after it (every kernel on its path must
+               launch); a FAIL verdict is printed, not raised.  Prints the
+               ``{"claims": {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
-phase 9) and read just after it.  It prints the
+phase 9, each oracle update in phase 11, each claim benchmark in phase 12)
+and read just after it.  It prints the
 ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -95,6 +120,7 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM peak rates (NVIDIA data sheet)
@@ -157,6 +183,23 @@ PIPE = dict(pipeline=PIPE_BUCKETS, overlap_bwd="on")
 PIPE_EARLY = PIPE_BUCKETS - 1
 # the state phase 6c is held to, bitwise
 PIPE_STATE = ("m", "worker_err", "server_err")
+
+# phase 11: the functional oracles against the registry optimizer at the
+# family's full BERT-Large (3 warmup + 3 compressed steps, then one zero1
+# step); launches of the oracle's own updates
+ORACLE_STEPS = (3, 3)
+ORACLE_LAUNCHES = {"adam_step": 0, "ef_compress": 6, "decompress": 6}
+ORACLE_ZERO1_LAUNCHES = {"adam_step": 0, "ef_compress": 2, "decompress": 2}
+# warmup: the fused kernel squares g as (1-b2)*g*g, the oracle as the
+# reference does, (1-b2)*square(g); each output is held at this rtol of
+# the size of the terms it is formed from
+ORACLE_WARM_RTOL = 1e-6
+
+# phase 12: the claim benchmarks; the variance system phase once more at
+# full BERT-Large, at the BERT pre-training peak LR (Devlin et al. 2019)
+CLAIMS_SEGMENTS = 8
+CLAIMS_SYSTEM = dict(arch="bert-large", batch=16, seq=128, block=4096,
+                     steps=80, b2=0.97, lr=1e-4)
 
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
@@ -1240,6 +1283,223 @@ def phase_serve_main():
     return counts, stats, eng, prompts
 
 
+def _flat_grad(ts, batch) -> float:
+    """This step's flat f32 gradient of the main path's model into
+    ``ts.g``; returns the loss."""
+    from repro_torch.models.transformer import loss_fn
+    ts.g.zero_()
+    loss, _ = loss_fn(ts.model, batch)
+    loss.backward()
+    return float(loss.detach())
+
+
+def _event_ms(fn):
+    """(fn's result, CUDA-event ms around the one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _differs(got, want, terms=None) -> dict:
+    """Max abs difference, elements not bitwise equal, and (with
+    ``terms``) elements beyond ORACLE_WARM_RTOL of their terms."""
+    diff = (got.float() - want.float()).abs()
+    out = {"max_abs": float(diff.max()),
+           "n_unequal": int((got != want).sum())}
+    if terms is not None:
+        out["n_beyond_tol"] = int((diff > ORACLE_WARM_RTOL * terms).sum())
+    return out
+
+
+def phase_oracles() -> dict:
+    """Phase 11: the functional oracles (``core.onebit_adam``) against the
+    registry ``onebit_adam`` at full BERT-Large, each step from the same
+    state and the same gradient of the main path's model; launch counts
+    set to 0 around the oracle's own updates."""
+    from repro_torch.core import onebit_adam as OB
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import lr_schedule
+    from repro_torch.train.step import optimizer_from_config, seed_zero1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ocfg = OB.OneBitAdamConfig(compression=CompressionConfig(
+        block_size=FAMILY["block_size"]))
+    opt = optimizer_from_config(ocfg)
+    ts, stream = _family_state(opt)
+    st = OB.init(ts.x.shape[0], 1, ts.x.device)
+    # the registry's state holds the oracle's tensors (its own zeros go)
+    ts.opt = ts.opt._replace(m=st.m, v=st.v, worker_err=st.worker_err,
+                             server_err=st.server_err, count=st.count)
+    launches = {k: 0 for k in build.launch_counts()}
+    steps, (w, c) = [], ORACLE_STEPS
+    t_phase = time.perf_counter()
+    for step in range(w + c + 1):
+        warm = step < w
+        loss = _flat_grad(ts, stream.batch_at(step))
+        lr = float(np.float32(lr_schedule(step, 1e-3, 20)))
+        if step == w + c:
+            break               # the zero1 step below takes this gradient
+        build.reset_launch_counts()
+        fn = OB.warmup_update if warm else OB.compressed_update
+        (ox, ost, ostats), o_ms = _event_ms(
+            lambda: fn(ts.g, st, ts.x, ocfg, lr))
+        for k, v in build.launch_counts().items():
+            launches[k] += v
+        reg = ts.opt._replace(m=st.m, v=st.v, worker_err=st.worker_err,
+                              server_err=st.server_err, count=st.count)
+        if warm:
+            (rx, rst, rstats), r_ms = _event_ms(
+                lambda: opt.warmup_update(ts.g, reg, ts.x, lr))
+        else:
+            (rx, rst, rstats), r_ms = _event_ms(
+                lambda: opt.update(ts.g, reg, lr, x=ts.x))
+        rec = {"step": step, "stage": "warmup" if warm else "compressed",
+               "loss": loss, "oracle_ms": o_ms, "registry_ms": r_ms}
+        if int(ost.count) != int(rst.count):
+            raise AssertionError(f"oracles step {step}: counts differ")
+        if warm:
+            # the registry takes the fused kernel, (1-b2)*g*g; the oracle
+            # the reference's (1-b2)*square(g): v and, through it, x
+            # differ at the ULP, each held at rtol 1e-6 of the terms it is
+            # formed from (x - lr*upd cancels where x is near lr*upd)
+            upd_terms = ost.m.abs() / (ost.v.sqrt() + ocfg.eps)
+            terms = {"x": ts.x.abs() + lr * upd_terms,
+                     "m": 0.9 * st.m.abs() + 0.1 * ts.g.abs(),
+                     "v": ost.v.abs()}
+            del upd_terms
+        else:
+            terms = {}
+        for name, got, want in (("x", ox, rx), ("m", ost.m, rst.m),
+                                ("v", ost.v, rst.v),
+                                ("worker_err", ost.worker_err,
+                                 rst.worker_err),
+                                ("server_err", ost.server_err,
+                                 rst.server_err)):
+            rec[name] = _differs(got, want, terms.get(name))
+            bad = rec[name].get("n_beyond_tol", rec[name]["n_unequal"])
+            if bad:
+                raise AssertionError(f"oracles step {step} ({rec['stage']})"
+                                     f": {name} {rec[name]}")
+        rec["stats"] = {k: [float(ostats[k]), float(rstats[k])]
+                        for k in ostats}
+        del rx, rst, rstats, reg, terms
+        st = ost
+        with torch.no_grad():
+            ts.x[:ts.d].copy_(ox[:ts.d])
+        del ox, ost
+        log(f"[oracles] step {step} [{rec['stage']}] loss {loss:.4f}: "
+            f"oracle {o_ms:.2f} ms, registry {r_ms:.2f} ms; max abs diff "
+            + ", ".join(f"{k} {rec[k]['max_abs']:.3e} ({rec[k]['n_unequal']}"
+                        " unequal)" for k in ("x", "m", "v", "worker_err",
+                                              "server_err")))
+        steps.append(rec)
+    want = dict(ORACLE_LAUNCHES, **NO_FLASH)
+    if launches != want:
+        raise AssertionError(f"oracles: launch counts {launches}, expected "
+                             f"{want}")
+
+    # one ZeRO-1 compressed step at n_dp = 1 from the oracle's state
+    ts.opt = ts.opt._replace(m=st.m, v=st.v, worker_err=st.worker_err,
+                             server_err=st.server_err, count=st.count)
+    seed_zero1(ts, opt)
+    z = OB.ZeroOneBitAdamState(
+        m=st.m, v_shard=ts.opt.v_shard, master_shard=ts.opt.master_shard,
+        worker_err=st.worker_err, server_err=st.server_err, count=st.count)
+    del st
+    build.reset_launch_counts()
+    (ox, oz, _), o_ms = _event_ms(
+        lambda: OB.zero1_compressed_update(ts.g, z, ocfg, lr))
+    z1_launches = build.launch_counts()
+    (rx, rz, _), r_ms = _event_ms(lambda: opt.update(ts.g, ts.opt, lr))
+    z1 = {"oracle_ms": o_ms, "registry_ms": r_ms, "launches": z1_launches}
+    for name, got, want in (("x_bf16", ox, rx),
+                            ("master_shard", oz.master_shard,
+                             rz.master_shard), ("m", oz.m, rz.m),
+                            ("worker_err", oz.worker_err, rz.worker_err),
+                            ("server_err", oz.server_err, rz.server_err)):
+        z1[name] = _differs(got, want)
+        if z1[name]["n_unequal"]:
+            raise AssertionError(f"oracles zero1: {name} {z1[name]}")
+    if z1_launches != dict(ORACLE_ZERO1_LAUNCHES, **NO_FLASH):
+        raise AssertionError(f"oracles zero1: launch counts {z1_launches}")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    log(f"[oracles] zero1 step: bitwise the registry's zero1 update "
+        f"(oracle {o_ms:.2f} ms, registry {r_ms:.2f} ms); oracle launches "
+        f"over {w} + {c} steps {launches}; peak memory {peak} bytes; "
+        f"{wall:.1f} s")
+    del ts, ox, oz, rx, rz, z
+    torch.cuda.empty_cache()
+    return dict(steps=steps, zero1=z1, launches=launches, peak_bytes=peak,
+                wall_s=wall)
+
+
+def phase_claims() -> dict:
+    """Phase 12: the paper's claim benchmarks on the card at the
+    reference's sizes, then the variance system phase at full BERT-Large;
+    each one's launch counts set to 0 before and read after it."""
+    from repro_torch.benchmarks import block_size_ablation as BS
+    from repro_torch.benchmarks import convergence as CV
+    from repro_torch.benchmarks import variance_stability as VS
+    from repro_torch.kernels import build
+    out = {}
+
+    def part(name, fn, kernels, verdict):
+        torch.cuda.empty_cache()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        secs = time.perf_counter() - t0
+        counts = build.launch_counts()
+        missing = [k for k in kernels if not counts[k]]
+        if missing:
+            raise AssertionError(f"claims {name}: no launch of {missing} "
+                                 f"({counts})")
+        ok = verdict(res)
+        out[name] = dict(result=res, verdict="PASS" if ok else "FAIL",
+                         seconds=secs, launches=counts)
+        log(f"[claims] {name}: {'PASS' if ok else 'FAIL'} in {secs:.1f} s, "
+            f"launches {counts}")
+        return res
+
+    rows = part("block_size_ablation", lambda: BS.run(device="cuda"),
+                ("ef_compress", "decompress"), BS.passes)
+    if not all(math.isfinite(r["toy_final_loss"]) for r in rows.values()):
+        raise AssertionError(f"claims: non-finite toy loss {rows}")
+    res = part("variance_stability",
+               lambda: VS.run(segments=CLAIMS_SEGMENTS, device="cuda"),
+               ("adam_step",),
+               lambda r: r["mechanism_ok"] and r["system_wiring_ok"])
+    if not res["system_losses_finite"]:
+        raise AssertionError("claims: non-finite loss in the variance "
+                             "system phase")
+    curves = {}
+    res = part("convergence", lambda: CV.run(device="cuda", curves=curves),
+               ("adam_step", "ef_compress", "decompress"),
+               lambda r: r["ok"])
+    if not res["finite"]:
+        raise AssertionError("claims: non-finite loss in convergence")
+    out["convergence"]["first_losses"] = {k: v[:3] for k, v in
+                                          curves.items()}
+    res = part("variance_system_bert_large",
+               lambda: VS.system_phase(device="cuda", **CLAIMS_SYSTEM),
+               ("adam_step",),
+               lambda r: r["freeze_step"] is not None
+               and r["freeze_step"] >= r["lr_warmup"])
+    if not res["losses_finite"]:
+        raise AssertionError("claims: non-finite loss in the full-width "
+                             "variance system phase")
+    log(f"[claims] full-width variance system phase: the Sec. 7.1 rule "
+        f"fired at step {res['freeze_step']} (ratio "
+        f"{res['ratio_at_freeze']}), ratio at the end {res['ratio_last']}")
+    return out
+
+
 def phase_serve_profile(eng, prompts) -> dict:
     """One prefill and one decode step of the serving model under
     torch.profiler: device time by kernel group and the idle share."""
@@ -1310,6 +1570,8 @@ def main() -> int:
     serve_stats["profile"] = phase_serve_profile(eng, prompts)
     del eng, prompts
     torch.cuda.empty_cache()
+    oracles = phase_oracles()
+    claims = phase_claims()
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -1321,11 +1583,16 @@ def main() -> int:
         entries.append(e)
     for e in entries:
         e["kernel_ms"] = e["ms"]
+        e["launches_oracles"] = oracles["launches"][e["name"]]
+        e["launches_claims"] = {part: c["launches"][e["name"]]
+                                for part, c in claims.items()}
     print(json.dumps({"main_path": stats}))
     print(json.dumps({"family_path": {k: v for k, v in family.items()
                                       if k != "pipeline"}}))
     print(json.dumps({"pipeline_path": pipe}))
     print(json.dumps({"serve_path": serve_stats}))
+    print(json.dumps({"oracles": oracles}))
+    print(json.dumps({"claims": claims}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

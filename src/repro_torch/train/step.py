@@ -63,12 +63,24 @@ from repro_torch.core.compression import padded_length
 from repro_torch.models.transformer import (Transformer, flat_size,
                                             leaf_shapes, loss_fn)
 from repro_torch.optim.base import (SegmentInfo, TwoStageOptimizer,
-                                    segments_of)
+                                    get_optimizer, segments_of)
+from repro_torch.optim.compressors import from_config
 from repro_torch.plan.executor import group_of
 from repro_torch.state.slots import StateTree
 
 STAGES = ("warmup", "compressed")
 TOPOLOGIES = ("flat", "hier")
+
+
+def optimizer_from_config(ocfg) -> TwoStageOptimizer:
+    """The registry ``onebit_adam`` a functional ``OneBitAdamConfig``
+    (``repro_torch.core.onebit_adam``) describes: its compressor, ``b1``,
+    ``b2``, ``eps``, ``weight_decay`` and ``bias_correction`` (the
+    reference's ``TrainStepConfig(opt=...).build_optimizer``)."""
+    return get_optimizer(
+        "onebit_adam", compressor=from_config(ocfg.compression), b1=ocfg.b1,
+        b2=ocfg.b2, eps=ocfg.eps, weight_decay=ocfg.weight_decay,
+        bias_correction=ocfg.bias_correction)
 
 
 def flat_dim(cfg: ArchConfig, n_dp: int, block: int) -> int:

@@ -10,14 +10,26 @@ hierarchical exchanges of ``inputs.npz`` per compressor (``onebit``,
 ``<backend><rank>.npz``, and whether top-k without the outer slots raised.
 
 ``steps_main``: a few ``train_step``s per entry of ``runs.json`` (arch,
-mesh, topology, buckets, overlap, accumulation, zero1); saves losses,
-step wall ms, the kernel launches of every step, and the parameters and
-state to ``steps<rank>.npz`` (with ``digest``: their SHA-256 instead, for
-full-size models).
+mesh, topology, buckets, overlap, accumulation, zero1, and optionally the
+optimizer, its keyword arguments and the ``local`` layout, whose
+compression-stage steps synchronise as ``sync_due`` says); saves losses,
+step wall ms, the kernel launches of every step, the syncs, and the
+parameters and state to ``steps<rank>.npz`` (with ``digest``: their
+SHA-256 instead, for full-size models).
+
+``layouts_main``: per entry of ``runs.json``, the optimizer's own
+warmup and compressed updates (the calls ``train_step`` makes) under the
+``local`` layout or with zero1 compressed steps, on a 2 x 2 mesh, fed
+seeded gradients whose dp sums are exact in f32 (multiples of 2^-14 below
+1/16 in magnitude), so the warmup all-reduce gives the same bits whatever
+order a backend sums in; ``on_card`` puts a gloo rank's tensors on its
+card; saves every step's parameters and state to
+``layouts_<backend><rank>.npz``.
 
 ``run_main``: the port's ``run`` per entry of ``runs.json`` (checkpoint
-and resume included); saves each run's losses and parameters to
-``run<rank>.npz``.
+and resume included); saves each run's losses, parameters and state to
+``run<rank>.npz`` (with ``digest``: SHA-256s of the parameters and
+state), and the checkpoint's save and load seconds.
 """
 import hashlib
 import json
@@ -33,8 +45,11 @@ EXCHANGE_STEPS = 3
 NB = 3
 
 
-def _init(rank: int, world: int, workdir: str, backend: str, tag: str):
-    if backend == "nccl":
+def _init(rank: int, world: int, workdir: str, backend: str, tag: str,
+          on_card: bool = None):
+    """This rank's device (its card under NCCL, or with ``on_card``) and
+    the process group."""
+    if on_card if on_card is not None else backend == "nccl":
         dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
         os.environ["LOCAL_RANK"] = str(rank)
@@ -115,17 +130,22 @@ def _train_steps(spec: dict, rank: int, dev):
     n_dp = mesh.n_dp
     inner, outer, n_inner, n_outer = pod_split(mesh.axes, mesh.sizes)
     hier = spec["topology"] == "hier" and n_outer > 1
-    opt = get_optimizer("onebit_adam", compressor="onebit",
-                        compressor_kwargs={"block_size": block})
+    opt = get_optimizer(spec.get("optimizer", "onebit_adam"),
+                        compressor="onebit",
+                        compressor_kwargs={"block_size": block},
+                        **spec.get("opt_kwargs", {}))
     params = init_params(cfg, torch.Generator().manual_seed(0), dev)
     ts = init_train_state(cfg, params, opt, block, n_dp, dev,
+                          layout=spec.get("layout", "replicated"),
                           n_inner=n_inner if hier else None)
     stream = SyntheticStream(
         cfg, InputShape("t", spec["seq"], spec["batch"], "train"), seed=0,
         shard=rank, n_shards=n_dp, device=dev)
-    losses, launches, ms, early = [], [], [], []
+    losses, launches, ms, early, syncs = [], [], [], [], []
     for step in range(spec["steps"]):
         stage = "warmup" if step < spec["warmup"] else "compressed"
+        sync = stage == "warmup" or ts.layout != "local" or \
+            opt.sync_due(step - spec["warmup"])
         if spec.get("zero1") and step == spec["warmup"]:
             seed_zero1(ts, opt, inner, outer,
                        n_inner=n_inner if hier else None)
@@ -133,20 +153,21 @@ def _train_steps(spec: dict, rank: int, dev):
         before = build.launch_counts()
         t0 = time.perf_counter()
         m = train_step(ts, opt, batch, lr_schedule(step, 2e-3, 2), stage,
-                       inner, accum_steps=spec.get("accum", 1),
+                       inner, sync=sync, accum_steps=spec.get("accum", 1),
                        pod_axes=outer, topology=spec["topology"],
                        n_buckets=spec["n_buckets"],
                        overlap_bwd=spec["overlap"])
         losses.append(float(m["loss"]))         # waits for the step
         ms.append((time.perf_counter() - t0) * 1e3)
         early.append(ts.stage0_in_bwd)
+        syncs.append(sync)
         after = build.launch_counts()
         launches.append([after[k] - before[k]
                          for k in ("adam_step", "ef_compress",
                                    "decompress")])
     keep = _digest if spec.get("digest") else (lambda t: t.cpu().numpy())
     out = {"loss": np.array(losses), "ms": np.array(ms),
-           "launches": np.array(launches),
+           "launches": np.array(launches), "sync": np.array(syncs),
            "stage0_in_bwd": np.array(early), "x": keep(ts.x)}
     for k, v in ts.opt.items():
         out["opt_" + k] = keep(v)
@@ -182,16 +203,96 @@ def run_main(rank: int, world: int, workdir: str, backend: str) -> None:
             specs = json.load(f)
         out = {}
         for name, kw in specs.items():
+            keep = _digest if kw.pop("digest", False) else \
+                (lambda t: t.cpu().numpy())
             res = run(device=dev.type, verbose=False, **kw)
             out[f"{name}__loss"] = np.array(
                 [h["loss"] for h in res["history"]])
             out[f"{name}__overlap"] = np.array(
                 [h["overlap"] for h in res["history"]])
-            out[f"{name}__x"] = res["state"].x.cpu().numpy()
+            out[f"{name}__ms"] = np.array([h["ms"] for h in res["history"]])
+            out[f"{name}__x"] = keep(res["state"].x)
             out[f"{name}__plan"] = np.array(res["plan"])
             for k, v in res["state"].opt.items():
-                out[f"{name}__opt_{k}"] = v.cpu().numpy()
+                out[f"{name}__opt_{k}"] = keep(v)
+            for k, v in res["checkpoint_s"].items():
+                out[f"{name}__{k}_s"] = np.array(v)
             del res
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         np.savez(os.path.join(workdir, f"run{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+LAYOUT_BLOCK = 4096
+LAYOUT_D = 4 * 8 * LAYOUT_BLOCK
+
+
+def _exact_grad(seed: int, step: int, rank: int, dev) -> torch.Tensor:
+    """Multiples of 2^-14 below 1/16: four of them sum exactly in f32."""
+    rng = np.random.default_rng([seed, step, rank])
+    g = rng.integers(-2 ** 10, 2 ** 10, LAYOUT_D).astype(np.float32)
+    return torch.from_numpy(g * np.float32(2.0 ** -14)).to(dev)
+
+
+def layouts_main(rank: int, world: int, workdir: str, backend: str,
+                 on_card: bool = False) -> None:
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.launch.train import lr_schedule
+    from repro_torch.optim import SegmentInfo, get_optimizer
+    from repro_torch.train.step import TrainState, seed_zero1
+    dev = _init(rank, world, workdir, backend, "layouts", on_card)
+    try:
+        with open(os.path.join(workdir, "runs.json")) as f:
+            specs = json.load(f)
+        mesh = build_mesh("2x2x1", dev.type)
+        axes = mesh.axes                    # the flat topology: both
+        segs = SegmentInfo((LAYOUT_D,))
+        out = {}
+        for name, spec in specs.items():
+            opt = get_optimizer(spec["optimizer"],
+                                compressor=spec["compressor"],
+                                compressor_kwargs={"block_size":
+                                                   LAYOUT_BLOCK},
+                                **spec.get("opt_kwargs", {}))
+            layout = spec.get("layout", "replicated")
+            ts = TrainState(model=None, x=torch.from_numpy(
+                np.random.default_rng(7).standard_normal(LAYOUT_D)
+                .astype(np.float32) * np.float32(0.05)).to(dev), g=None,
+                opt=opt.init_state(LAYOUT_D, world, 1, layout=layout,
+                                   device=dev), d=LAYOUT_D, segs=segs,
+                layout=layout)
+            w = spec["warmup"]
+            for step in range(spec["steps"]):
+                g = _exact_grad(spec["seed"], step, rank, dev)
+                lr = lr_schedule(step, 2e-3, 2)
+                before = build.launch_counts()
+                if step < w:
+                    sync = True
+                    x, ts.opt, _ = opt.warmup_update(g, ts.opt, ts.x, lr,
+                                                     dp_axes=axes,
+                                                     segs=segs)
+                else:
+                    if spec.get("zero1") and step == w:
+                        seed_zero1(ts, opt, axes)
+                    sync = ts.layout != "local" or opt.sync_due(step - w)
+                    x, ts.opt, _ = opt.update(g, ts.opt, lr, x=ts.x,
+                                              dp_axes=axes, segs=segs,
+                                              sync=sync)
+                ts.x = x.to(torch.float32)
+                after = build.launch_counts()
+                key = f"{name}__s{step}"
+                out[key + "_sync"] = np.array(sync)
+                out[key + "_launches"] = np.array(
+                    [after[k] - before[k] for k in ("adam_step",
+                                                    "ef_compress",
+                                                    "decompress")])
+                out[key + "_x"] = ts.x.cpu().numpy()
+                for k, v in ts.opt.items():
+                    out[f"{key}_opt_{k}"] = v.cpu().numpy()
+        np.savez(os.path.join(workdir, f"layouts_{backend}{rank}.npz"),
+                 **out)
     finally:
         dist.destroy_process_group()

@@ -401,3 +401,173 @@ def test_nccl_hier_training_pipelined_bitwise_serial(card, tmp_path):
               + json.dumps([got[f"{name}__ms"].round(1).tolist()
                             for got in ranks])
               + f"; losses {ranks[0][name + '__loss'].tolist()}")
+
+
+# 0/1 Adam's schedule of chip_smoke.py phase 6b: within 3 + 5 steps it
+# synchronises at compressed steps 0, 1, 2 and 4 (step 3 is 0-bit) and
+# refreshes v at counts 4, 6 and 8
+ZERONE = dict(var_update_interval=2, sync_double_every=2,
+              sync_max_interval=2)
+ZERONE_SYNCS = [True] * 6 + [False, True]
+LAYOUT_RUNS = {
+    f"{name}_{comp}": dict(spec, compressor=comp)
+    for comp in ("onebit", "topk", "identity")
+    for name, spec in (
+        ("zerone_local", dict(optimizer="zerone_adam", layout="local",
+                              opt_kwargs=ZERONE, steps=8, warmup=3,
+                              seed=1)),
+        ("onebit_zero1", dict(optimizer="onebit_adam", zero1=True,
+                              steps=6, warmup=3, seed=2)))}
+
+
+def test_nccl_local_and_zero1_match_gloo(card, tmp_path):
+    """The ``local`` layout (0/1 Adam, 3 + 5 steps with a 0-bit step and
+    ``v`` refreshes) and zero1 compressed steps (1-bit Adam, 3 + 3 steps,
+    ``seed_zero1`` at the switch) on a 2 x 2 mesh of four cards, each
+    under the 1-bit, top-k and identity compressors: the optimizer's own
+    updates (the calls ``train_step`` makes) over NCCL, and the same run
+    over gloo with every rank's tensors on its card, so that the two
+    differ only in the collectives.  Both are fed the same seeded
+    gradients, whose dp sums are exact in f32, so the warmup all-reduce
+    cannot differ with a backend's summation order.  Every rank's
+    parameters and state after every step are bitwise the gloo run's,
+    for every compressor (the card's kernels on the same inputs; the CPU
+    cannot stand in: its ``torch.sqrt`` is not correctly rounded where
+    the fused Adam kernel's is).  The parameters are bitwise equal across
+    ranks, and each step launches 1 / 0 / 0 kernels in warmup
+    (adam_step / ef_compress / decompress), 0 / 2 / 2 on a 1-bit sync
+    step and none on a 0-bit step or under top-k or identity."""
+    import json
+    import torch.multiprocessing as mp
+    import _torch_hier_worker as hw
+    _four_cards()
+    with open(tmp_path / "runs.json", "w") as f:
+        json.dump(LAYOUT_RUNS, f)
+    for backend in ("nccl", "gloo"):
+        mp.start_processes(hw.layouts_main,
+                           args=(4, str(tmp_path), backend, True), nprocs=4,
+                           start_method="spawn")
+    nccl = [np.load(tmp_path / f"layouts_nccl{r}.npz") for r in range(4)]
+    gloo = [np.load(tmp_path / f"layouts_gloo{r}.npz") for r in range(4)]
+    for name, spec in LAYOUT_RUNS.items():
+        w, onebit = spec["warmup"], spec["compressor"] == "onebit"
+        syncs = [bool(nccl[0][f"{name}__s{t}_sync"])
+                 for t in range(spec["steps"])]
+        if spec["optimizer"] == "zerone_adam":
+            assert syncs == ZERONE_SYNCS, (name, syncs)
+        for t in range(spec["steps"]):
+            key = f"{name}__s{t}"
+            launches = nccl[0][key + "_launches"].tolist()
+            want = [1, 0, 0] if t < w else \
+                [0, 2, 2] if onebit and syncs[t] else [0, 0, 0]
+            assert launches == want, (key, launches)
+            for r in range(4):
+                np.testing.assert_array_equal(nccl[r][key + "_x"],
+                                              nccl[0][key + "_x"])
+                for k in gloo[r].files:
+                    if k.startswith(key + "_"):
+                        np.testing.assert_array_equal(
+                            nccl[r][k], gloo[r][k], err_msg=f"{k} rank {r}")
+
+
+# full-width BERT-Large training under the local layout and with zero1
+# compressed steps on four NCCL cards (16 x 128 a rank)
+FOUR_CARD_LAYOUTS = {
+    "zerone_local": dict(FOUR_CARD, steps=8, topology="flat", n_buckets=1,
+                         overlap=False, optimizer="zerone_adam",
+                         layout="local", opt_kwargs=ZERONE),
+    "onebit_zero1": dict(FOUR_CARD, topology="flat", n_buckets=1,
+                         overlap=False, zero1=True)}
+
+
+def test_nccl_local_and_zero1_training(card, tmp_path):
+    """Full-width BERT-Large through ``train_step`` on a 2 x 2 NCCL mesh:
+    0/1 Adam under the ``local`` layout (3 + 5 steps, the 0-bit step
+    launching no exchange kernel) and 1-bit Adam whose compressed steps
+    run under zero1 (3 + 3).  Losses are finite, the parameters are
+    bitwise equal across the ranks, and each step launches 1 / 0 / 0
+    kernels in warmup, 0 / 2 / 2 on a sync step, none on a 0-bit step.
+    Prints each run's step walls."""
+    import json
+    import torch.multiprocessing as mp
+    import _torch_hier_worker as hw
+    _four_cards()
+    with open(tmp_path / "runs.json", "w") as f:
+        json.dump(FOUR_CARD_LAYOUTS, f)
+    mp.start_processes(hw.steps_main, args=(4, str(tmp_path), "nccl"),
+                       nprocs=4, start_method="spawn")
+    ranks = [np.load(tmp_path / f"steps{r}.npz") for r in range(4)]
+    for name, spec in FOUR_CARD_LAYOUTS.items():
+        w = spec["warmup"]
+        for r, got in enumerate(ranks):
+            assert np.isfinite(got[f"{name}__loss"]).all(), (name, r)
+            assert got[f"{name}__x"].tolist() == \
+                ranks[0][f"{name}__x"].tolist(), (name, r)
+            syncs = got[f"{name}__sync"].tolist()
+            if name == "zerone_local":
+                assert syncs == ZERONE_SYNCS, syncs
+            launches = got[f"{name}__launches"].tolist()
+            assert launches == [[1, 0, 0]] * w + [
+                [0, 2, 2] if s else [0, 0, 0] for s in syncs[w:]], \
+                (name, r, launches)
+        print(f"[nccl4] {name}: step ms by rank "
+              + json.dumps([got[f"{name}__ms"].round(1).tolist()
+                            for got in ranks])
+              + f"; losses {ranks[0][name + '__loss'].tolist()}")
+
+
+def test_nccl_checkpoint_resume_bitwise(card, tmp_path):
+    """A checkpoint saved at step 4 of full-width BERT-Large 1-bit Adam on
+    a 2 x 2 NCCL mesh (rank 0 gathers every rank's slots), resumed to step
+    6 serially and with 2 buckets: on every rank the resumed steps'
+    losses, the parameters and every state slot are bitwise the
+    uninterrupted run with the same bucket count (SHA-256 of each; the
+    chunk slots are keyed by bucket), and the uninterrupted runs with 1
+    and 2 buckets agree bitwise on the losses, parameters, ``m``, ``v``
+    and ``worker_err``.  Prints the checkpoint's bytes, its save and load
+    seconds and the step walls."""
+    import json
+    import os
+    import torch.multiprocessing as mp
+    import _torch_hier_worker as hw
+    _four_cards()
+    path = str(tmp_path / "c.npz")
+    base = dict(arch="bert-large", recipe="onebit_adam", warmup_steps=3,
+                batch=64, seq=128, block_size=4096, mesh="2x2x1",
+                digest=True)
+    runs = {"full": dict(base, steps=6),
+            "full2": dict(base, steps=6, pipeline=2),
+            "first": dict(base, steps=4, ckpt=path),
+            "off": dict(base, steps=6, resume=path),
+            "two": dict(base, steps=6, resume=path, pipeline=2)}
+    with open(tmp_path / "runs.json", "w") as f:
+        json.dump(runs, f)
+    mp.start_processes(hw.run_main, args=(4, str(tmp_path), "nccl"),
+                       nprocs=4, start_method="spawn")
+    ranks = [np.load(tmp_path / f"run{r}.npz") for r in range(4)]
+    assert str(ranks[0]["two__plan"]) == "pipe(flat/onebit)x2"
+    slots = [k[len("full__"):] for k in ranks[0].files
+             if k.startswith("full__opt_")]
+    assert "opt_worker_err" in slots and "opt_server_err" in slots
+    for r, got in enumerate(ranks):
+        assert np.isfinite(got["full__loss"]).all()
+        np.testing.assert_array_equal(got["first__loss"],
+                                      got["full__loss"][:4])
+        np.testing.assert_array_equal(got["full2__loss"], got["full__loss"])
+        for k in ("x", "opt_m", "opt_v", "opt_worker_err"):
+            assert str(got[f"full2__{k}"]) == str(got[f"full__{k}"]), (k, r)
+        for run, want in (("off", "full"), ("two", "full2")):
+            np.testing.assert_array_equal(got[f"{run}__loss"],
+                                          got[f"{want}__loss"][4:],
+                                          err_msg=f"{run} rank {r}")
+            for k in ["x"] + slots:
+                assert str(got[f"{run}__{k}"]) == str(got[f"{want}__{k}"]), \
+                    (run, k, r)
+    print(f"[nccl4] checkpoint: {os.path.getsize(path)} bytes, saved in "
+          f"{float(ranks[0]['first__save_s']):.1f} s, loaded in "
+          + ", ".join(f"{float(g['off__load_s']):.1f}" for g in ranks)
+          + " s (serial resume, by rank), "
+          + ", ".join(f"{float(g['two__load_s']):.1f}" for g in ranks)
+          + " s (2 buckets); step ms "
+          + "; ".join(f"{run} " + json.dumps(
+              ranks[0][f"{run}__ms"].round(1).tolist()) for run in runs))

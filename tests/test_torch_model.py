@@ -92,7 +92,8 @@ def test_flat_order_is_ravel_pytree(seed):
 
 
 @pytest.mark.parametrize("arch", ["bert-large", "bert-large-smoke",
-                                  "bert-base", "llama3.2-3b"])
+                                  "bert-base", "llama3.2-3b",
+                                  "internlm2-1.8b", "internlm2-1.8b-smoke"])
 def test_layout_matches_reference(arch):
     """Leaf paths, shapes and the padded flat length, without allocating
     (bert-large: d = 364,561,408, d_pad = 364,564,480 at block 4096;
