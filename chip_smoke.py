@@ -97,11 +97,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                before and read after it (every kernel on its path must
                launch); a FAIL verdict is printed, not raised.  Prints the
                ``{"claims": {...}}`` line.
+ 13. plan   — planning on the card: ``repro_torch.benchmarks.kernel_sweep``
+               into a temporary JSON, loaded by
+               ``DeviceSpec.from_measured(..., base="h100-sxm")``; the
+               fitted HBM bandwidth, launch overhead and peak FLOP/s beside
+               the data sheet's (a clamped fit or a share above 105 %
+               fails); then the main path through ``run`` with
+               ``topology``, ``pipeline`` and ``overlap_bwd`` all "auto"
+               on the ``ethernet-10g`` cluster and the calibrated spec
+               (full BERT-Large, 3 + 3 steps, seed 0): the tuner's pick
+               and table, launch counts read around exactly this run
+               (3 / 6 per bucket / 6 per bucket), losses and the final x,
+               m, worker_err and server_err bitwise phase 5's (the host
+               copies phase 6c is held to); then ``predict_step_time`` of
+               the main path's compressed plan on the calibrated spec
+               beside phase 5's compressed walls and phase 6's device-busy
+               ms, and their ratios (a measurement only).  Prints the
+               ``{"plan": {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
-phase 9, each oracle update in phase 11, each claim benchmark in phase 12)
-and read just after it.  It prints the
+phase 9, each oracle update in phase 11, each claim benchmark in phase 12,
+the sweep and the auto run in phase 13) and read just after it.  It prints the
 ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -200,6 +217,13 @@ ORACLE_WARM_RTOL = 1e-6
 CLAIMS_SEGMENTS = 8
 CLAIMS_SYSTEM = dict(arch="bert-large", batch=16, seq=128, block=4096,
                      steps=80, b2=0.97, lr=1e-4)
+
+# phase 13: the main path with every schedule axis left to the plan tuner,
+# priced on the paper's headline cluster and the card's calibrated spec
+PLAN_RUN = dict(topology="auto", pipeline="auto", overlap_bwd="auto",
+                cluster="ethernet-10g")
+# a fitted rate above the data sheet's by more than this is a failed fit
+PLAN_SHARE_MAX = 1.05
 
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
@@ -1532,6 +1556,116 @@ def phase_serve_profile(eng, prompts) -> dict:
     return out
 
 
+def phase_plan(main_losses, main_state, main_stats) -> dict:
+    """Phase 13: calibrate the device spec on the card, run the main path
+    with every schedule axis ``auto`` on it (bitwise phase 5's), and set
+    the model's step time beside the measured one."""
+    from repro_torch.benchmarks import kernel_sweep
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import run
+    from repro_torch.optim import get_compressor
+    from repro_torch.perf.device import DeviceSpec, get_device
+    from repro_torch.plan import flat_schedule, get_cluster, predict_step_time
+    # 1. calibrate
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    path = os.path.join(workdir, "device.json")
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = kernel_sweep.run(json_path=path)
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = build.launch_counts()
+    spec = DeviceSpec.from_measured(path, base="h100-sxm")
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if fit["peak_flops"] is None:
+        raise AssertionError("plan: the sweep did not observe peak_flops")
+    sheet = get_device("h100-sxm")
+    shares = {"hbm_bw": spec.hbm_bw / sheet.hbm_bw,
+              "peak_flops": spec.peak_flops / sheet.peak_flops}
+    log(f"[plan] calibrated in {sweep_s:.1f} s ({len(fit['samples'])} "
+        f"samples; launches {sweep_launches}): hbm_bw {spec.hbm_bw:.6e} B/s "
+        f"({shares['hbm_bw']:.1%} of the data sheet's {sheet.hbm_bw:.3e}), "
+        f"peak_flops {spec.peak_flops:.6e} FLOP/s "
+        f"({shares['peak_flops']:.1%} of {sheet.peak_flops:.3e}), "
+        f"kernel_overhead {spec.kernel_overhead * 1e6:.3f} us")
+    over = {k: v for k, v in shares.items() if v > PLAN_SHARE_MAX}
+    if over:
+        raise AssertionError(f"plan: fitted rates above the data sheet: "
+                             f"{over}")
+    # 2. tune and run
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = run(device="cuda", **MAIN, **PLAN_RUN, device_spec=spec)
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pick = res["schedule"]
+    if pick is None or res["n_buckets"] != pick.n_buckets:
+        raise AssertionError(f"plan: the run did not take the tuner's pick "
+                             f"({res['n_buckets']} buckets, pick {pick})")
+    nb = res["n_buckets"]
+    steps_c = MAIN["steps"] - MAIN["warmup_steps"]
+    want = dict(NO_FLASH, adam_step=MAIN["warmup_steps"],
+                ef_compress=2 * steps_c * nb, decompress=2 * steps_c * nb)
+    if counts != want or res["launches"] != counts:
+        raise AssertionError(f"plan: launch counts {counts}, expected "
+                             f"{want}")
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    ts = res["state"]
+    same = {"losses": losses == main_losses,
+            "x": torch.equal(ts.x.cpu(), main_state["x"])}
+    for k in PIPE_STATE:
+        same[k] = torch.equal(ts.opt[k].cpu(), main_state[k])
+    early = [h["stage0_in_bwd"] for h in hist]
+    ready = list(pick.ready_times)
+    predicted_early = sum(r < max(ready) for r in ready) if ready else 0
+    comp_ms = [h["ms"] for h in hist[MAIN["warmup_steps"]:]]
+    log(f"[plan] picked {pick.topology} x {nb} bucket(s), overlap "
+        f"{'on' if res['overlap_bwd'] else 'off'}, kernels "
+        f"{'cuda' if pick.use_kernel else 'plain'}: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; bitwise phase 5's: {same}; compressed step ms {comp_ms}; "
+        f"stage 0s inside backward {early} (priced {predicted_early} a "
+        f"step); peak memory {peak} bytes")
+    if not all(same.values()):
+        raise AssertionError(f"plan: the auto run is not bitwise phase "
+                             f"5's {same}")
+    d_pad = res["d_pad"]
+    del ts, res
+    torch.cuda.empty_cache()
+    # 3. the model's step time against the measured one
+    cfg = get_config(MAIN["arch"])
+    comp = get_compressor("onebit", block_size=MAIN["block_size"])
+    plan = flat_schedule(comp, d_pad, 1, ())
+    pred = predict_step_time(
+        plan, get_cluster(PLAN_RUN["cluster"], 1, 1, device=spec), cfg,
+        InputShape("main", MAIN["seq"], MAIN["batch"], "train"),
+        comp=comp, use_kernel=True)
+    pred_ms = pred["t_step"] * 1e3
+    walls = main_stats["compressed_step_ms"]
+    busy = main_stats["profile"]["compressed"]["device_busy_ms"]
+    log(f"[plan] predicted compressed step {pred_ms:.3f} ms (6ND compute "
+        f"{pred['t_compute'] * 1e3:.3f} + exchange compute "
+        f"{pred['t_exchange_compute'] * 1e3:.3f} + links "
+        f"{pred['t_comm'] * 1e3:.3f}); measured: phase 5 walls {walls} "
+        f"ms (ratio " + ", ".join(f"{w / pred_ms:.1f}" for w in walls)
+        + f"), phase 6 device busy {busy:.3f} ms (ratio "
+        f"{busy / pred_ms:.1f})")
+    return {"fit": {k: fit[k] for k in ("hbm_bw", "kernel_overhead",
+                                        "peak_flops", "clamped")},
+            "shares": shares, "sweep_s": sweep_s,
+            "sweep_launches": sweep_launches, "sweep_samples": fit["samples"],
+            "pick": pick.summary(), "launches": counts, "losses": losses,
+            "bitwise_main": same, "compressed_step_ms": comp_ms,
+            "stage0_in_bwd": early, "stage0_in_bwd_priced": predicted_early,
+            "peak_bytes": peak, "predicted": pred,
+            "measured_compressed_ms": walls, "measured_busy_ms": busy,
+            "ratio_wall": [w / pred_ms for w in walls],
+            "ratio_busy": busy / pred_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -1562,7 +1696,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_pipeline_small()
     pipe = phase_pipeline(stats["losses"], main_state)
-    del main_state
     family["pipeline"] = pipe
     simt, wgmma, wide = phase_flash()
     phase_serve_small()
@@ -1572,6 +1705,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     oracles = phase_oracles()
     claims = phase_claims()
+    torch.cuda.empty_cache()
+    plan = phase_plan(stats["losses"], main_state, stats)
+    del main_state
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -1586,6 +1722,7 @@ def main() -> int:
         e["launches_oracles"] = oracles["launches"][e["name"]]
         e["launches_claims"] = {part: c["launches"][e["name"]]
                                 for part, c in claims.items()}
+        e["launches_plan"] = plan["launches"][e["name"]]
     print(json.dumps({"main_path": stats}))
     print(json.dumps({"family_path": {k: v for k, v in family.items()
                                       if k != "pipeline"}}))
@@ -1593,6 +1730,7 @@ def main() -> int:
     print(json.dumps({"serve_path": serve_stats}))
     print(json.dumps({"oracles": oracles}))
     print(json.dumps({"claims": claims}))
+    print(json.dumps({"plan": plan}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,13 @@
 
 The port's copy of ``repro/configs/base.py``: the fields the BERT encoder
 training path (slice 1) and the dense-decoder serving path (slice 2)
-read, ``padded_vocab`` and ``reduced()`` (the CPU smoke variant, derived
-exactly as the reference derives it), ``InputShape``, ``OptimSpec`` and
-the training recipes of the optimizer family.  The reference's
-``onebit_adam_autotopo`` and ``onebit_adam_pipelined`` recipes, and the
-``topology`` / ``pipeline`` fields of ``OptimSpec`` that only they set,
-need the plan tuner, which the port does not have yet: the topology and
-the pipeline are the run's own options.
+read, the derived sizes the planning stack reads (``padded_vocab``,
+``padded_heads``, ``is_attn_layer``, ``param_count``), ``reduced()`` (the
+CPU smoke variant, derived exactly as the reference derives it),
+``InputShape``, ``OptimSpec`` and the training recipes of the optimizer
+family, with the reference's ``onebit_adam_autotopo`` and
+``onebit_adam_pipelined``, whose ``topology`` / ``pipeline`` the plan
+tuner resolves.
 """
 from __future__ import annotations
 
@@ -69,6 +69,27 @@ class ArchConfig:
         q = 8 * tp  # keep byte-alignment for the vocab-parallel shard
         return ((self.vocab + q - 1) // q) * q
 
+    def padded_heads(self, tp: int = 1) -> int:
+        """Query heads padded up to a multiple of tp."""
+        if not self.n_heads:
+            return 0
+        return ((self.n_heads + tp - 1) // tp) * tp
+
+    def is_attn_layer(self, i: int) -> bool:
+        """Every layer of the port's families (encoder, dense) attends."""
+        return self.n_heads > 0
+
+    def param_count(self, tp: int = 1) -> int:
+        """Parameter count of ``init_params`` (padding included)."""
+        if tp != 1:
+            raise NotImplementedError("tensor parallelism is not ported")
+        from repro_torch.models.transformer import flat_size
+        return flat_size(self)
+
+    def active_param_count(self, tp: int = 1) -> int:
+        """Parameters touched a token: all of them (no MoE layers)."""
+        return self.param_count(tp)
+
     def reduced(self) -> "ArchConfig":
         """The CPU-smoke variant: 2 layers, d_model 256, <= 4 heads."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
@@ -102,6 +123,11 @@ class OptimSpec:
     var_freeze_threshold: float = 0.96
     optimizer_kwargs: Optional[dict] = None
     compressor_kwargs: Optional[dict] = None
+    # the collective schedule: "flat" | "hier" | "auto" (the plan tuner
+    # picks per the run's cluster and device spec), and the bucket count
+    # of the pipelined exchange: "off" | N | "auto"
+    topology: str = "flat"
+    pipeline: object = "off"
 
 
 _OPTIM_RECIPES: Dict[str, OptimSpec] = {}
@@ -141,6 +167,12 @@ for _spec in (
                                 "sync_double_every": 64,
                                 "sync_max_interval": 4}),
     OptimSpec(name="onebit_lamb", optimizer="onebit_lamb"),
+    # the topology picked by the plan tuner for the run's cluster (flat on
+    # uniform fabrics, hier when cross-pod bandwidth is the bottleneck)
+    OptimSpec(name="onebit_adam_autotopo", topology="auto"),
+    # ...and the bucket count searched with it
+    OptimSpec(name="onebit_adam_pipelined", topology="auto",
+              pipeline="auto"),
 ):
     register_optim_recipe(_spec)
 

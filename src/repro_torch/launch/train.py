@@ -20,8 +20,15 @@ into N block-aligned buckets (clamped to the alignment units);
 ``--overlap-bwd on`` issues each bucket's exchange from inside backward
 on compressed steps that synchronise, with more than one bucket (every
 other step runs serially; each step's record says which).  ``auto`` for
-any of them needs the plan tuner, which the port does not have: it
-raises.
+any of them is resolved by one joint search of the plan tuner
+(``repro_torch.plan.autotune``) against ``--cluster`` (a link preset or
+``measured:<comm_sweep.json>``) and ``--device-spec`` (a device preset,
+default ``h100-sxm`` on cuda and ``cpu-host`` on cpu, or
+``measured:<kernel_sweep.json>``); it prints the pick and the priced
+table.  The recipes ``onebit_adam_autotopo`` and
+``onebit_adam_pipelined`` set ``auto`` themselves.  The kernel axis has
+no flag: a CUDA tensor takes the port's kernels, so the device spec
+implies it.
 
 A recipe (``--recipe``, ``repro_torch.configs.list_optim_recipes``) names
 the optimizer, the compressor, their keyword arguments and the warmup
@@ -56,9 +63,10 @@ from repro_torch.configs.base import InputShape
 from repro_torch.convert import flat_from_params, params_from_flat
 from repro_torch.data import SyntheticStream
 from repro_torch.kernels import build
-from repro_torch.launch.mesh import build_mesh, pod_split
+from repro_torch.launch.mesh import build_mesh, mesh_axes, pod_split
 from repro_torch.models.transformer import init_params, leaf_shapes
 from repro_torch.optim import WarmupSwitch, get_optimizer
+from repro_torch.plan import autotune, get_cluster
 from repro_torch.plan.schedules import (allreduce_schedule, flat_schedule,
                                         hier_schedule, needs_outer_ef)
 from repro_torch.state import StateLayout, bucket_sizes_for
@@ -91,31 +99,97 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-def _no_auto(name: str, value) -> None:
-    if value == "auto":
-        raise NotImplementedError(
-            f"{name}='auto' needs the plan cost model and tuner, a later "
-            "slice of the port (Slice D): pass it explicitly")
+def bwd_ready_fn(cfg, batch: int, seq: int, device, tp: int = 1):
+    """``(ready_times_fn, t_bwd)``: a closure ``(bucket_offsets, d_pad)
+    -> per-bucket ready seconds`` from the analytic reverse sweep
+    (``analysis.model_math``), and the whole backward's seconds."""
+    from repro_torch.analysis.model_math import (bwd_ready_times,
+                                                 bwd_total_time)
+    shape = InputShape("custom", seq, batch, "train")
+
+    def fn(offsets, d_pad):
+        return bwd_ready_times(offsets, d_pad, cfg, shape, device, tp)
+
+    return fn, bwd_total_time(cfg, shape, device, tp)
 
 
-def resolve_schedule(topology, pipeline, overlap_bwd) -> tuple:
-    """(topology, n_buckets, overlap) from the options' spellings: a
-    topology name, ``"off"`` or a bucket count, ``"off"`` or ``"on"``.
-    ``auto`` raises."""
-    for name, value in (("topology", topology), ("pipeline", pipeline),
-                        ("overlap_bwd", overlap_bwd)):
-        _no_auto(name, value)
-    if topology not in ("flat", "hier"):
-        raise ValueError(f"topology must be 'flat' or 'hier', got "
+def resolve_schedule(topology, pipeline, overlap_bwd,
+                     cluster: str = "ethernet-10g", cfg=None,
+                     dp_sizes=(1,), compressor: str = "onebit",
+                     block_size: int = 4096, compressor_kwargs=None,
+                     device_spec="h100-sxm", batch: int = 8,
+                     seq: int = 128, verbose: bool = True) -> tuple:
+    """``(topology, n_buckets, overlap, tuned)`` from the options'
+    spellings: a topology name or ``"auto"``; ``"off"``, a bucket count
+    or ``"auto"``; ``"off"``, ``"on"`` or ``"auto"``.
+
+    The ``auto`` axes are resolved by one joint ``autotune`` search
+    (``tuned`` is its TuneResult, else None): the mesh's dp sizes fix
+    the pod split (the leading of two axes is the pod axis), ``cluster``
+    the links, ``device_spec`` the compute roofline and the kernel axis;
+    the compressor and block size are pinned.  Explicit values pin their
+    axis.  Overlap candidates are priced on the analytic backward ready
+    times for (``batch``, ``seq``) and charged only the exchange time
+    exposed beyond backward."""
+    if topology not in ("flat", "hier", "auto"):
+        raise ValueError(f"topology must be 'flat', 'hier' or 'auto', got "
                          f"{topology!r}")
-    n_buckets = 1 if pipeline == "off" else int(pipeline)
-    if n_buckets < 1:
-        raise ValueError(f"pipeline must be 'off' or a count >= 1, got "
-                         f"{pipeline!r}")
-    if overlap_bwd not in ("off", "on"):
-        raise ValueError(f"overlap_bwd must be 'off' or 'on', got "
+    if overlap_bwd not in ("off", "on", "auto"):
+        raise ValueError(f"overlap_bwd must be 'off', 'on' or 'auto', got "
                          f"{overlap_bwd!r}")
-    return topology, n_buckets, overlap_bwd == "on"
+    pipe_auto, topo_auto = pipeline == "auto", topology == "auto"
+    ob_auto = overlap_bwd == "auto"
+    n_buckets = 1 if pipeline in ("off", "auto") else int(pipeline)
+    if n_buckets < 1:
+        raise ValueError(f"pipeline must be 'off', 'auto' or a count >= 1, "
+                         f"got {pipeline!r}")
+    overlap = overlap_bwd == "on"
+    if not (topo_auto or pipe_auto or ob_auto):
+        return topology, n_buckets, overlap, None
+    _, _, n_inner, n_outer = pod_split(mesh_axes(dp_sizes), dp_sizes)
+    spec = get_cluster(cluster, n_inner=n_inner, n_outer=n_outer,
+                       device=device_spec)
+    d = flat_dim(cfg, n_inner * n_outer, block_size)
+    if topo_auto:
+        topos = ("flat", "hier") if n_outer > 1 else ("flat",)
+    else:
+        # hier on one pod runs flat: price what runs
+        topos = (topology if topology != "hier" or n_outer > 1
+                 else "flat",)
+    # forced on still prices overlap off, so a serial pipeline keeps a
+    # valid candidate
+    overlap_opts = (False, True) if (ob_auto or overlap) else (False,)
+    ready_fn, t_bwd = bwd_ready_fn(cfg, batch, seq, spec.device)
+    tuned = autotune(spec, d, compressors=[compressor],
+                     block_sizes=[block_size], topologies=topos,
+                     compressor_kwargs=compressor_kwargs,
+                     n_buckets_options=(1, 2, 4, 8) if pipe_auto
+                     else (n_buckets,),
+                     overlap_bwd_options=overlap_opts,
+                     t_bwd=t_bwd, ready_times_fn=ready_fn)
+    best = tuned.best
+    if verbose:
+        print(f"[auto-schedule] cluster={spec.name} "
+              f"({n_outer} pod(s) x {n_inner} dp, "
+              f"device={spec.device.name}): picked "
+              f"{best.topology!r} x {best.n_buckets} bucket(s), "
+              f"kernels={'cuda' if best.use_kernel else 'plain'}, "
+              f"overlap-bwd={'on' if best.overlap_bwd else 'off'} "
+              f"(t_exchange {best.t_exchange*1e3:.3f} ms, compute "
+              f"{best.t_compute*1e3:.3f} ms, "
+              f"DCI {best.dci_bytes_per_pod} B/pod)", flush=True)
+        for c in tuned.table:
+            if c.valid:
+                print(f"    {c.topology:5s} buckets={c.n_buckets} "
+                      f"kernels={'cuda' if c.use_kernel else 'plain':5s} "
+                      f"overlap={'on' if c.overlap_bwd else 'off':3s} "
+                      f"t={c.t_exchange*1e3:.3f} ms "
+                      f"(compute {c.t_compute*1e3:.3f}) "
+                      f"dci={c.dci_bytes_per_pod}", flush=True)
+    out_nb = best.n_buckets if pipe_auto else n_buckets
+    out_ob = best.overlap_bwd if ob_auto else overlap
+    return (best.topology if topo_auto else topology, out_nb,
+            out_ob and out_nb > 1, tuned)
 
 
 def run_plans(optim, d_pad: int, dp_axes, dp_sizes, topology: str):
@@ -143,20 +217,27 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         optimizer: Optional[str] = None, compressor: Optional[str] = None,
         ckpt: Optional[str] = None, resume: Optional[str] = None,
         stage_override: Optional[str] = None, mesh=None,
-        topology: str = "flat", pipeline="off",
-        overlap_bwd: str = "off") -> dict:
+        topology: Optional[str] = None, pipeline=None,
+        overlap_bwd: str = "off", cluster: str = "ethernet-10g",
+        device_spec=None) -> dict:
     """Train until step ``steps``; returns ``{"history", "launches", "d",
     "d_pad", "state", "optimizer", "layout", "start_step",
-    "checkpoint_s", "topology", "n_buckets", "overlap_bwd", "plan"}``
-    (``checkpoint_s``: the seconds of the resume's load and the last
-    save, host clock; ``plan``: the compressed exchange's plan name).
+    "checkpoint_s", "topology", "n_buckets", "overlap_bwd", "plan",
+    "schedule"}`` (``checkpoint_s``: the seconds of the resume's load and
+    the last save, host clock; ``plan``: the compressed exchange's plan
+    name; ``schedule``: the tuner's pick, a ``plan.tune.Candidate``, when
+    an axis was ``auto``, else None).
 
     ``warmup_steps`` is the manual T_w; ``None`` (or an ``auto`` recipe)
     selects the paper's Sec. 7.1 variance-ratio rule, as in the
     reference driver.  ``batch`` is the global batch, split over the dp
     ranks of an initialised process group.  ``mesh`` (default: one dp
     axis over the process group) is a ``--mesh`` spelling; ``topology``
-    and ``pipeline`` default to ``"flat"`` and ``"off"``.  ``resume``
+    and ``pipeline`` default to the recipe's (``"flat"`` and ``"off"``
+    but for the auto recipes).  ``auto`` values are resolved by the plan
+    tuner (:func:`resolve_schedule`) against ``cluster`` and
+    ``device_spec`` (a DeviceSpec, a preset name or
+    ``measured:<path>``; default by ``device``).  ``resume``
     starts at the checkpoint's step; the compression-stage step count
     that drives ``sync_due`` resumes with it (manual T_w; the auto rule's
     monitor is not checkpointed, as in the reference)."""
@@ -168,11 +249,18 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     if compressor:
         spec = dataclasses.replace(spec, compressor=compressor)
     spec = dataclasses.replace(spec, block_size=block_size)
-    topology, n_buckets, overlap = resolve_schedule(topology, pipeline,
-                                                    overlap_bwd)
     n_dp = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     dpm = build_mesh(mesh if mesh is not None else str(n_dp), dev.type)
+    topology, n_buckets, overlap, tuned = resolve_schedule(
+        spec.topology if topology is None else topology,
+        spec.pipeline if pipeline is None else pipeline, overlap_bwd,
+        cluster=cluster, cfg=cfg, dp_sizes=dpm.sizes,
+        compressor=spec.compressor, block_size=block_size,
+        compressor_kwargs=spec.compressor_kwargs,
+        device_spec=device_spec or ("cpu-host" if device == "cpu"
+                                    else "h100-sxm"),
+        batch=batch, seq=seq, verbose=verbose and rank == 0)
     dp_axes, pod_axes, n_inner, n_outer = pod_split(dpm.axes, dpm.sizes) \
         if n_dp > 1 else ((), (), 1, 1)
     if topology == "hier" and n_outer == 1:
@@ -288,7 +376,8 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
             "layout": layout, "start_step": start_step,
             "checkpoint_s": io_s, "topology": topology,
             "n_buckets": n_buckets, "overlap_bwd": overlap,
-            "plan": plan_name}
+            "plan": plan_name,
+            "schedule": tuned.best if tuned else None}
 
 
 def main(argv=None):
@@ -323,17 +412,28 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="N, Nx1 or PxNx1 (pods x data x model = 1); "
                          "default: one dp axis over WORLD_SIZE ranks")
-    ap.add_argument("--topology", default="flat",
-                    choices=["flat", "hier", "auto"],
+    ap.add_argument("--topology", default=None,
+                    choices=[None, "flat", "hier", "auto"],
                     help="hier = the two-level exchange (flat on one pod); "
-                         "auto raises")
-    ap.add_argument("--pipeline", default="off",
-                    help="off or a bucket count N (the pipelined "
-                         "exchange); auto raises")
+                         "auto = the plan tuner picks per --cluster; "
+                         "default: the recipe's")
+    ap.add_argument("--pipeline", default=None,
+                    help="off, a bucket count N (the pipelined exchange) "
+                         "or auto; default: the recipe's")
     ap.add_argument("--overlap-bwd", default="off",
                     choices=["off", "on", "auto"],
                     help="issue each bucket's exchange from inside "
-                         "backward (needs --pipeline > 1); auto raises")
+                         "backward (needs --pipeline > 1); auto = the "
+                         "four-stream cost model decides")
+    ap.add_argument("--cluster", default="ethernet-10g",
+                    help="link preset the auto values are priced on "
+                         "(repro_torch.plan.list_clusters()), or "
+                         "measured:<comm_sweep.json>")
+    ap.add_argument("--device-spec", default=None,
+                    help="device preset of the compute pricing "
+                         "(repro_torch.perf.list_devices()) or "
+                         "measured:<kernel_sweep.json>; default h100-sxm "
+                         "on cuda, cpu-host on cpu")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -348,7 +448,8 @@ def main(argv=None):
             optimizer=args.optimizer, compressor=args.compressor,
             ckpt=args.ckpt, resume=args.resume, stage_override=args.stage,
             mesh=args.mesh, topology=args.topology, pipeline=args.pipeline,
-            overlap_bwd=args.overlap_bwd)
+            overlap_bwd=args.overlap_bwd, cluster=args.cluster,
+            device_spec=args.device_spec)
     finally:
         if world > 1:
             dist.destroy_process_group()

@@ -14,6 +14,12 @@ Registered entries: ``onebit`` (sign + per-block mean-|x| scale, through
 the Hopper kernels on CUDA tensors), ``identity`` (no-op) and ``topk``
 (per-block magnitude top-k with error feedback; plain PyTorch on every
 device, as the reference computes it outside any Pallas kernel).
+
+Beside the wire format each compressor declares its compute
+(``compute_specs``), which the cost model prices.  The kernel a tensor
+takes follows its device (a CUDA tensor always takes the kernel), so
+``compute_specs(d, use_kernel)`` prices the fused path when asked for it
+(on a CUDA device spec) and the reference's unfused chain otherwise.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import torch
 
 from repro_torch.core.compression import CompressionConfig, DEFAULT_BLOCK
 from repro_torch.kernels.onebit import ops as _ops
-from repro_torch.plan.ir import WireSpec
+from repro_torch.perf.kernel_cost import (ZERO_COMPUTE, ComputeSpec,
+                                          ef_combine_cost, elementwise_pass)
+from repro_torch.plan.ir import WireSpec, log2ceil
 
 Payload = Tuple[torch.Tensor, ...]
 
@@ -69,11 +77,35 @@ class Compressor:
     def wire_bytes(self, d: int) -> int:
         return sum(ws.nbytes for ws in self.wire_specs(d))
 
+    # --- declared compute (repro_torch.perf), next to the wire format ----
+    has_kernel = False   # a fused CUDA path exists for CUDA tensors
+
+    def _compress_cost(self, d: int, use_kernel: bool) -> ComputeSpec:
+        raise NotImplementedError
+
+    def _decompress_cost(self, d: int, use_kernel: bool) -> ComputeSpec:
+        raise NotImplementedError
+
+    def compute_specs(self, d: int, use_kernel: bool = False
+                      ) -> Dict[str, ComputeSpec]:
+        """Declared compute of a d-element f32 vector, keyed
+        ``compress`` / ``decompress`` / ``ef_compress``: the compute
+        analogue of ``wire_specs``, priced by ``repro_torch.plan.cost``.
+        ``use_kernel`` prices the fused CUDA path (what a CUDA tensor
+        runs) where the compressor has one.  The base composition is the
+        base ``ef_compress``: an add pass, a compress, a decompress and a
+        residual pass."""
+        c = self._compress_cost(d, use_kernel)
+        dc = self._decompress_cost(d, use_kernel)
+        return {"compress": c, "decompress": dc,
+                "ef_compress": ef_combine_cost(d) + c + dc}
+
 
 @dataclasses.dataclass(frozen=True)
 class OneBitCompressor(Compressor):
     block_size: int = DEFAULT_BLOCK
     name = "onebit"
+    has_kernel = True
 
     def compress(self, x):
         return _ops.compress(x, self.block_size)
@@ -91,6 +123,33 @@ class OneBitCompressor(Compressor):
         return (WireSpec("uint8", (d // 8,)),
                 WireSpec("float32", (d // self.block_size,)))
 
+    # traffic of csrc/onebit.cu (fused: one launch, each array once) and of
+    # the reference's unfused chain (a pack pass and a scale pass; unpack
+    # materialises the (d,) sign vector before the scale multiply)
+    def _compress_cost(self, d, use_kernel):
+        w = self.wire_bytes(d)
+        if use_kernel:
+            return ComputeSpec(flops=2.0 * d, hbm_bytes=4 * d + w,
+                               kernels=1)
+        return ComputeSpec(flops=2.0 * d, hbm_bytes=8 * d + w, kernels=2)
+
+    def _decompress_cost(self, d, use_kernel):
+        w = self.wire_bytes(d)
+        if use_kernel:
+            return ComputeSpec(flops=2.0 * d, hbm_bytes=w + 4 * d,
+                               kernels=1)
+        return ComputeSpec(flops=2.0 * d, hbm_bytes=w + 12 * d, kernels=2)
+
+    def compute_specs(self, d, use_kernel=False):
+        specs = super().compute_specs(d, use_kernel)
+        if use_kernel:
+            # repro_ef_compress: buf, scale, pack and residual in one pass
+            # reading x and err, writing new_err and the payload
+            specs["ef_compress"] = ComputeSpec(
+                flops=4.0 * d, hbm_bytes=12 * d + self.wire_bytes(d),
+                kernels=1)
+        return specs
+
 
 @dataclasses.dataclass(frozen=True)
 class IdentityCompressor(Compressor):
@@ -106,6 +165,11 @@ class IdentityCompressor(Compressor):
 
     def wire_specs(self, d):
         return (WireSpec("float32", (d,)),)
+
+    def compute_specs(self, d, use_kernel=False):
+        # the payload is the buffer: ef_compress is one add pass
+        return {"compress": ZERO_COMPUTE, "decompress": ZERO_COMPUTE,
+                "ef_compress": elementwise_pass(d, 2, 1)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +232,20 @@ class TopKCompressor(Compressor):
                 WireSpec(str(self.index_dtype).removeprefix("torch."),
                          (kept,)))
 
+    def _compress_cost(self, d, use_kernel):
+        # abs pass + per-block top-k (O(B log B) a block) + value gather;
+        # reads x twice, writes the (vals, idx) payload
+        w = self.wire_bytes(d)
+        return ComputeSpec(flops=float(d) * max(log2ceil(self.block_size),
+                                                1),
+                           hbm_bytes=8 * d + w, kernels=3)
+
+    def _decompress_cost(self, d, use_kernel):
+        # zero fill + scatter of the kept (value, index) pairs
+        w = self.wire_bytes(d)
+        return ComputeSpec(flops=float(d), hbm_bytes=4 * d + 2 * w,
+                           kernels=2)
+
 
 _COMPRESSORS: Dict[str, Callable[..., Compressor]] = {}
 
@@ -193,6 +271,15 @@ def get_compressor(name: str, **kwargs) -> Compressor:
 
 def list_compressors():
     return sorted(_COMPRESSORS)
+
+
+def compressor_has_kernel(name: str) -> bool:
+    """True when the registered entry has a fused CUDA path (checked
+    without constructing it): the tuner's kernel axis reads it."""
+    if name not in _COMPRESSORS:
+        raise KeyError(f"unknown compressor {name!r}; "
+                       f"registered: {sorted(_COMPRESSORS)}")
+    return bool(getattr(_COMPRESSORS[name], "has_kernel", False))
 
 
 def from_config(cfg: CompressionConfig) -> Compressor:

@@ -1,0 +1,96 @@
+"""ComputeSpec — declared FLOP/HBM-byte counts of the optimizer hot path.
+
+A :class:`ComputeSpec` is to compute what
+:class:`~repro_torch.plan.ir.WireSpec` is to communication: a static,
+declared account of what an operation costs, priced against a
+:class:`~repro_torch.perf.device.DeviceSpec` by the roofline formula
+
+    t = max(flops / peak_flops, hbm_bytes / hbm_bw) + kernels * overhead.
+
+Compressors declare their own specs next to ``wire_specs``
+(:meth:`repro_torch.optim.compressors.Compressor.compute_specs`); this
+module holds the shared vocabulary plus the specs that are not
+compressor-owned (the fused and unfused Adam update, elementwise passes,
+the EF fold, the all_to_all combine).
+
+Byte counts are pass counts over HBM, each input read once and each
+output written once:
+
+  * ``csrc/onebit.cu`` ``repro_ef_compress``: reads x and err, writes
+    new_err and the wire payload (d/8 packed bytes + one f32 scale a
+    block): 12d + d/8 + 4d/block bytes, one launch; ``repro_decompress``
+    reads the payload and writes d f32: 4d + d/8 + 4d/block;
+  * ``csrc/fused_adam.cu`` ``repro_adam_step``: 4 reads (x, m, v, g) and
+    3 writes (x, m, v), 28d bytes, one launch; the unfused chain
+    materialises the m/v EMAs and the update: 6 reads + 5 writes over 5
+    kernels.
+
+These are the byte counts of PERF.md's bound column, and the tests pin
+the closed forms to the reference's (``tests/test_torch_perf.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+F32 = 4  # bytes per float32 element
+
+
+@dataclasses.dataclass(frozen=True)
+class ComputeSpec:
+    """Declared cost of one compute step: FLOPs + HBM traffic + number
+    of kernel launches.  Additive: composing steps sums fields."""
+
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    kernels: int = 0
+
+    def __add__(self, other: "ComputeSpec") -> "ComputeSpec":
+        return ComputeSpec(self.flops + other.flops,
+                           self.hbm_bytes + other.hbm_bytes,
+                           self.kernels + other.kernels)
+
+    def time(self, device) -> float:
+        """Roofline seconds on ``device`` (a DeviceSpec)."""
+        return device.roofline_time(self.flops, self.hbm_bytes,
+                                    self.kernels)
+
+
+ZERO_COMPUTE = ComputeSpec()
+
+
+def elementwise_pass(d: int, n_read: int, n_write: int,
+                     flops_per_elem: float = 1.0) -> ComputeSpec:
+    """One elementwise kernel over ``d`` f32 elements reading ``n_read``
+    operands and writing ``n_write`` results."""
+    return ComputeSpec(flops=flops_per_elem * d,
+                       hbm_bytes=F32 * d * (n_read + n_write),
+                       kernels=1)
+
+
+def adam_update_cost(d: int, fused: bool) -> ComputeSpec:
+    """The elementwise Adam update over ``d`` f32 elements: fused (the
+    ``adam_step`` kernel) one pass of 4 reads + 3 writes; unfused, 6
+    reads + 5 writes over 5 kernels.  ~12 flops an element either way
+    (two EMAs, square, sqrt, divide, axpy)."""
+    if fused:
+        return ComputeSpec(flops=12.0 * d, hbm_bytes=F32 * d * (4 + 3),
+                           kernels=1)
+    return ComputeSpec(flops=12.0 * d, hbm_bytes=F32 * d * (6 + 5),
+                       kernels=5)
+
+
+def ef_combine_cost(d: int) -> ComputeSpec:
+    """The EF bookkeeping around an unfused compress: ``buf = x + err``
+    (2 reads, 1 write) and ``new_err = buf - decompress(payload)`` (2
+    reads, 1 write).  A fused EF kernel overrides ``compute_specs``
+    wholesale instead."""
+    return elementwise_pass(d, 2, 1) + elementwise_pass(d, 2, 1)
+
+
+def combine_cost(d_total: int, n: int) -> ComputeSpec:
+    """The all_to_all's local combine: the mean of ``n`` decompressed
+    chunks (``d_total = n * chunk``), one pass reading every chunk and
+    writing the combined one."""
+    return ComputeSpec(flops=float(d_total),
+                       hbm_bytes=F32 * (d_total + d_total // max(n, 1)),
+                       kernels=1)

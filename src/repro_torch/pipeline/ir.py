@@ -23,10 +23,13 @@ payload that is neither refuses to lower.  The per-bucket wire formats of
 a block-aligned bucketing add up to the serial one, so
 ``PipelinedPlan.hlo_bytes() == plan.hlo_bytes()``.
 
-The port's copy of ``repro/pipeline/ir.py``.  ``BucketPlan.compute`` stays
-``()``: the reference fills it with ``ComputeSpec`` pricing annotations
-from its plan cost model, which the port does not have yet (the reference
-allows ``()``); the executor never reads it.
+Each bucket carries its per-op (pre, post)
+:class:`~repro_torch.perf.kernel_cost.ComputeSpec` pair
+(``repro_torch.plan.cost.op_compute``) in ``BucketPlan.compute``, so the
+cost model schedules the compute stream without deriving anything at
+pricing time; the executor never reads it.
+
+The port's copy of ``repro/pipeline/ir.py``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import dataclasses
 from typing import Dict, Iterator, Optional, Tuple
 
 from repro_torch.pipeline.bucket import Bucketer
+from repro_torch.plan.cost import op_compute
 from repro_torch.plan.ir import CollectiveOp, CommPlan, WireSpec
 
 
@@ -196,9 +200,11 @@ def _rebucket_op(op: CollectiveOp, comp, d: int, d_b: int) -> CollectiveOp:
     return dataclasses.replace(op, d_in=d_in_b, payload=payload)
 
 
-def lower_to_pipelined(plan: CommPlan, comp,
-                       bucketer: Bucketer) -> PipelinedPlan:
-    """Lower ``plan`` onto ``bucketer``'s partition (see module doc)."""
+def lower_to_pipelined(plan: CommPlan, comp, bucketer: Bucketer,
+                       use_kernel: bool = False) -> PipelinedPlan:
+    """Lower ``plan`` onto ``bucketer``'s partition (see module doc).
+    Each bucket's compute annotations price the fused kernel path with
+    ``use_kernel`` (what a CUDA tensor runs), else the unfused chain."""
     if bucketer.d != plan.d:
         raise ValueError(f"bucketer d={bucketer.d} != plan d={plan.d}")
     buckets = []
@@ -206,6 +212,8 @@ def lower_to_pipelined(plan: CommPlan, comp,
         ops = tuple(_rebucket_op(op, comp, plan.d, size)
                     for op in plan.ops)
         sub = CommPlan(name=f"{plan.name}@b{i}", d=size, ops=ops).validate()
-        buckets.append(BucketPlan(index=i, offset=off, size=size, plan=sub))
+        compute = tuple(op_compute(op, comp, use_kernel) for op in ops)
+        buckets.append(BucketPlan(index=i, offset=off, size=size, plan=sub,
+                                  compute=compute))
     return PipelinedPlan(name=f"pipe({plan.name})x{len(buckets)}",
                          d=plan.d, buckets=tuple(buckets)).validate()

@@ -1,6 +1,8 @@
-"""CommPlan — the declarative IR of the collective schedules (the subset
+"""CommPlan — the declarative IR of the collective schedules: the ops of
 the flat Fig. 3 schedule, the hierarchical two-level schedule and the
-warmup all-reduce need).
+warmup all-reduce, and ``ReduceScatter`` / ``Broadcast``, which the cost
+model prices (``repro_torch.plan.cost``) and no schedule of the executor
+runs yet.
 
 A :class:`CommPlan` is a straight-line sequence of typed collective ops.
 Every op is annotated with
@@ -163,6 +165,49 @@ class AllReduce(CollectiveOp):
 
 
 @dataclasses.dataclass(frozen=True)
+class ReduceScatter(CollectiveOp):
+    """Reduce + scatter: each rank keeps its reduced chunk.  Value length:
+    ``d_in -> d_in // n``."""
+
+    reduce: str = "mean"
+
+    @property
+    def d_out(self) -> int:
+        return self.d_in // max(self.n, 1)
+
+    @property
+    def wire_send_bytes(self) -> float:
+        return self.payload_bytes * (self.n - 1) / max(self.n, 1)
+
+    @property
+    def hlo_bytes(self) -> float:
+        return float(self.payload_bytes)
+
+    def validate(self) -> None:
+        super().validate()
+        if self.reduce not in ("mean", "sum"):
+            raise ValueError(f"unknown reduce {self.reduce!r}")
+        if self.d_in % max(self.n, 1):
+            raise ValueError(f"reduce_scatter: d_in={self.d_in} does not "
+                             f"split over {self.n} ranks")
+
+
+@dataclasses.dataclass(frozen=True)
+class Broadcast(CollectiveOp):
+    """One-to-all from rank ``root`` of ``axes`` (a tree: log2(n) rounds)."""
+
+    root: int = 0
+
+    @property
+    def wire_send_bytes(self) -> float:
+        return float(self.payload_bytes)
+
+    @property
+    def hlo_bytes(self) -> float:
+        return float(self.payload_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
 class CommPlan:
     """A named, validated sequence of collective ops.  ``d`` is the
     represented f32 vector length entering the plan; ``err_slots`` names
@@ -209,3 +254,8 @@ class CommPlan:
                 f"  {op.kind:13s} axes={op.axes} n={op.n} tier={op.tier}"
                 f" d={op.d_in}->{op.d_out} [{leaves}]{ef}")
         return "\n".join(lines)
+
+
+def log2ceil(n: int) -> int:
+    """ceil(log2(n)) for n > 1, else 0: the rounds of a tree collective."""
+    return (int(n) - 1).bit_length() if n > 1 else 0

@@ -27,7 +27,8 @@ card; saves every step's parameters and state to
 ``layouts_<backend><rank>.npz``.
 
 ``run_main``: the port's ``run`` per entry of ``runs.json`` (checkpoint
-and resume included); saves each run's losses, parameters and state to
+and resume included, ``auto`` schedule axes too); saves each run's losses,
+plan name, stage 0s issued inside backward, parameters and state to
 ``run<rank>.npz`` (with ``digest``: SHA-256s of the parameters and
 state), and the checkpoint's save and load seconds.
 """
@@ -213,6 +214,8 @@ def run_main(rank: int, world: int, workdir: str, backend: str) -> None:
             out[f"{name}__ms"] = np.array([h["ms"] for h in res["history"]])
             out[f"{name}__x"] = keep(res["state"].x)
             out[f"{name}__plan"] = np.array(res["plan"])
+            out[f"{name}__stage0_in_bwd"] = np.array(
+                [h["stage0_in_bwd"] for h in res["history"]])
             for k, v in res["state"].opt.items():
                 out[f"{name}__opt_{k}"] = keep(v)
             for k, v in res["checkpoint_s"].items():

@@ -571,3 +571,96 @@ def test_nccl_checkpoint_resume_bitwise(card, tmp_path):
           + " s (2 buckets); step ms "
           + "; ".join(f"{run} " + json.dumps(
               ranks[0][f"{run}__ms"].round(1).tolist()) for run in runs))
+
+
+def test_nccl_comm_sweep_fits_the_intra_link(card, tmp_path):
+    """``benchmarks.comm_sweep`` over NCCL on one pod of four cards: NCCL
+    ``all_reduce`` and ``reduce_scatter`` timed at 4 KiB .. 64 MiB fit
+    (ov, α, β) of the intra link (one pod: no cross link), and
+    ``ClusterSpec.from_measured`` loads the JSON, or refuses it when the
+    fit clamped a term.  Prints the fit and the samples: a measurement,
+    not a gate on the card's numbers."""
+    import json
+    from repro_torch.benchmarks import comm_sweep
+    from repro_torch.plan.cost import ClusterSpec
+    _four_cards()
+    path = str(tmp_path / "links.json")
+    out = comm_sweep.run("4", device="cuda", json_path=path)
+    assert out["cross"] is None and (out["n_inner"], out["n_outer"]) == \
+        (4, 1)
+    assert len(out["samples"]) == 2 * len(comm_sweep.SIZES)
+    assert all(s["seconds"] > 0 for s in out["samples"])
+    if out["clamped"]:
+        with pytest.raises(ValueError, match="clamped"):
+            ClusterSpec.from_measured(path)
+    else:
+        spec = ClusterSpec.from_measured(path)
+        assert spec.intra == spec.cross and spec.n_inner == 4
+    print(f"[nccl4] comm_sweep intra: alpha {out['intra']['latency']:.6e} "
+          f"s, beta {out['intra']['bandwidth']:.6e} B/s, op_overhead "
+          f"{out['op_overhead']:.6e} s, clamped {out['clamped']}; samples "
+          + json.dumps([[s["op"], s["nbytes"], s["seconds"]]
+                        for s in out["samples"]]))
+
+
+def test_nccl_comm_volume_check_plans(card):
+    """``benchmarks.comm_volume --check-plans`` over NCCL on four cards
+    (2 x 2): for every compressor, flat over 4, hier 2 x 2 and both with 2
+    and 4 buckets, ``hlo_bytes()`` equals the bytes handed to NCCL on
+    every rank, exactly."""
+    from repro_torch.benchmarks import comm_volume
+    _four_cards()
+    table = comm_volume.check_plans(device="cuda")
+    assert len(table) == 18 and all(r["match"] for r in table.values())
+
+
+def test_nccl_auto_schedule_bitwise_explicit(card, tmp_path):
+    """``run`` at full BERT-Large on a 2 x 2 NCCL mesh (16 x 128 a rank,
+    3 + 3 steps) with ``topology``, ``pipeline`` and ``overlap_bwd``
+    ``"auto"`` on ``ethernet-10g`` and the ``h100-sxm`` spec takes the
+    tuner's pick, and on every rank its losses, parameters and state are
+    bitwise the explicit run's with the picked values (SHA-256 of each).
+    Prints the pick, the step walls, and the stage 0s issued inside
+    backward: measured (``TrainState.stage0_in_bwd``) against the count
+    the priced ready times imply (ravel order taken as layer order)."""
+    import json
+    import torch.multiprocessing as mp
+    import _torch_hier_worker as hw
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import resolve_schedule
+    _four_cards()
+    base = dict(arch="bert-large", recipe="onebit_adam", steps=6,
+                warmup_steps=3, batch=64, seq=128, block_size=4096,
+                mesh="2x2x1", digest=True)
+    topo, nb, ob, tuned = resolve_schedule(
+        "auto", "auto", "auto", cluster="ethernet-10g",
+        cfg=get_config("bert-large"), dp_sizes=(2, 2), block_size=4096,
+        device_spec="h100-sxm", batch=64, seq=128)
+    runs = {"auto": dict(base, topology="auto", pipeline="auto",
+                         overlap_bwd="auto"),
+            "explicit": dict(base, topology=topo, pipeline=str(nb),
+                             overlap_bwd="on" if ob else "off")}
+    with open(tmp_path / "runs.json", "w") as f:
+        json.dump(runs, f)
+    mp.start_processes(hw.run_main, args=(4, str(tmp_path), "nccl"),
+                       nprocs=4, start_method="spawn")
+    ranks = [np.load(tmp_path / f"run{r}.npz") for r in range(4)]
+    ready = tuned.best.ready_times
+    priced = sum(r < max(ready) for r in ready) if ready else 0
+    for r, got in enumerate(ranks):
+        assert str(got["auto__plan"]) == str(got["explicit__plan"]), r
+        assert np.isfinite(got["auto__loss"]).all()
+        np.testing.assert_array_equal(got["auto__loss"],
+                                      got["explicit__loss"])
+        for k in [k[len("auto__"):] for k in got.files
+                  if k.startswith("auto__opt_")] + ["x"]:
+            assert str(got[f"auto__{k}"]) == str(got[f"explicit__{k}"]), \
+                (k, r)
+    print(f"[nccl4] auto schedule: {topo} x {nb} bucket(s), overlap "
+          f"{'on' if ob else 'off'} ({ranks[0]['auto__plan']}); stage 0s "
+          f"inside backward measured "
+          f"{ranks[0]['auto__stage0_in_bwd'].tolist()}, priced {priced} a "
+          f"step; step ms auto "
+          + json.dumps([g["auto__ms"].round(1).tolist() for g in ranks])
+          + " explicit "
+          + json.dumps([g["explicit__ms"].round(1).tolist() for g in ranks]))

@@ -6,7 +6,8 @@ package's (``repro.pipeline``).
     refused; ``state.bucket_sizes_for`` is the same partition.
   * ``lower_to_pipelined``: op for op the reference's lowering of the
     same flat and hierarchical plans (names, sizes, offsets, kinds,
-    tiers, EF slots, ``d_in``, payloads), its ``slot_strides``,
+    tiers, EF slots, ``d_in``, payloads, the per-op compute annotations),
+    its ``slot_strides``,
     ``issue_order`` with and without ``order``, byte totals; a payload
     that is not linear is refused.
   * A single rank's pipelined exchange is bitwise its serial one and is
@@ -106,7 +107,11 @@ def test_lowering_matches_reference(topo, kind, nb):
         assert (a.index, a.offset, a.size, a.plan.name, a.plan.d) == \
             (b.index, b.offset, b.size, b.plan.name, b.plan.d)
         assert _ops(a.plan) == _ops(b.plan)
-        assert a.compute == ()
+        # the (pre, post) ComputeSpecs each op is priced with
+        assert [(p.flops, p.hbm_bytes, p.kernels, q.flops, q.hbm_bytes,
+                 q.kernels) for p, q in a.compute] == \
+            [(p.flops, p.hbm_bytes, p.kernels, q.flops, q.hbm_bytes,
+              q.kernels) for p, q in b.compute]
     assert tp.slot_strides() == jp.slot_strides()
     assert tp.slot_lengths() == jp.slot_lengths()
     assert list(tp.edges()) == list(jp.edges())
