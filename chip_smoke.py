@@ -49,28 +49,42 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                (the embedding's) lands; peak memory; one compressed step
                profiled as in phase 6 (device-to-device copy time beside
                phase 6's).
-  7. flash   — both flash-attention kernels against their plain version on
-               the card: the SIMT kernel (the f32 route) on small f32 shapes
-               (S 128/256/512, D 32/64/128, causal and not, windows
-               32/64/128); the tensor-core kernel (the bf16/fp16 route) on
-               ragged fp16 shapes; head dims 48/80/96/256 (zero-padded) in
-               f32, bf16 and fp16; head dims 320/512/1000 (the wide SIMT
-               instance) in f32, bf16 and fp16, and one wide case timed;
-               then the serving shape (8, 24, 2048, 128)
-               bf16 causal, with CUDA-event times of the tensor-core kernel,
-               the SIMT kernel on the same bf16 inputs, the plain version and
-               PyTorch's scaled_dot_product_attention (timed only), the
-               bound, and the HGMMA instructions in the built library's
-               SASS (cuobjdump, where the toolkit has it).
+  7. flash   — the three flash-attention routes against their plain version
+               on the card: the f32 route (the split kernel on the tensor
+               cores) on small f32 shapes (S 128/256/512, D 32/64/128,
+               causal and not, windows 32/64/128); the wgmma kernel (the
+               bf16/fp16 route) on ragged fp16 shapes; head dims
+               48/80/96/256 (zero-padded) in f32, bf16 and fp16; head dims
+               320/512/1000 (the wide route, the split kernel) in f32, bf16
+               and fp16; then, each beside PyTorch's
+               scaled_dot_product_attention in the same dtype (timed only),
+               its plain version and its bound: the wide route at (2, 8,
+               1024, 512) bf16 causal, the f32 route at (8, 24, 2048, 128)
+               f32 causal (with the split's own floor), and the wgmma kernel
+               at (8, 24, 2048, 128) bf16 causal, timed by
+               ``repro_torch.benchmarks.flash_bench`` on the checked
+               inputs (CUDA events around one call; run alone, that script
+               also reads the profiler's device time of each launch); the
+               HGMMA instructions in each split-kernel instance's own SASS
+               (cuobjdump -sass, cut at each function's header; phase 7
+               fails where there is none or no cuobjdump).
   8. serve-small — the port's ServeEngine on ``llama3.2-3b-smoke`` with
                attn_impl="pallas", on the card and on the CPU from one seed:
-               prefill logits and 8 teacher-forced decode steps agree.
+               prefill logits and 8 teacher-forced decode steps agree (the
+               card's f32 prefill runs the f32 route once per layer).
   9. serve-main — the serving path through the user entry point
                ``repro_torch.serve.ServeEngine.generate``: full-width,
                full-depth llama3.2-3b, random weights from seed 0, batch 8
                x 2048-token prompts, 32 greedy new tokens; launch counts
-               read around exactly this run (28 launches of the
-               tensor-core flash kernel, none of the SIMT one).
+               read around exactly this run (28 launches of the wgmma
+               kernel, none of the other routes).
+  9b. serve-f32 — the same entry point on full llama3.2-3b with
+               compute_dtype="float32" and attn_impl="pallas" (random
+               weights from seed 0, batch 8 x 2048-token prompts, 4 new
+               tokens): launch counts read around exactly this run (28 of
+               the f32 route, none of the others), prefill ms and peak
+               memory; the last-position logits against the same engine
+               with attn_impl="full" (TF32 off).
  10. serve-profile — one prefill and one decode step under torch.profiler
                (measurement only).
  11. oracles — the functional 1-bit Adam oracles
@@ -117,10 +131,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
-phase 9, each oracle update in phase 11, each claim benchmark in phase 12,
-the sweep and the auto run in phase 13) and read just after it.  It prints the
-``{"kernels": [...]}`` line, the card line, and as its last line
-``{"ok": true, "device": {...}}``.
+phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
+phase 12, the sweep and the auto run in phase 13) and read just after it.
+It prints the ``{"kernels": [...]}`` line, the card line, and as its last
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -140,10 +154,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peak rates (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
+# the f32 route's bound is f32 operands on the tensor cores at the TF32
+# rate (benchmarks/flash_bench.py); the split kernel runs each f32 product
+# as six bf16 products, three TF32 passes' worth: its own floor
+F32_SPLIT_PASSES = 3
 
 MAIN = dict(arch="bert-large", recipe="onebit_adam", steps=6,
             warmup_steps=3, batch=16, seq=128, block_size=4096)
@@ -233,6 +247,14 @@ SERVE_SMALL = dict(arch="llama3.2-3b-smoke", batch=2, prompt=64, steps=8,
 # online softmax and the plain one, sum in other orders: the tolerance of
 # tests/test_kernels.py's prefill test
 SERVE_SMALL_TOL = dict(rtol=1e-4, atol=1e-4)
+# phase 9b: the f32 prefill at full width through the same entry point
+SERVE_F32 = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=4,
+                 seed=0)
+# its last-position logits against attn_impl="full" on the card: f32 on
+# both sides (TF32 off); the f32 route's online softmax and the full path's
+# one softmax sum in other orders, as in phase 8, so the same tolerance
+# (tests/test_kernels.py's prefill test), now over 28 full-width layers
+SERVE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 # every 16-bit check: the rtol of tests/test_kernels.py:176; the
 # tensor-core kernel also rounds p to bf16 (relative 2^-8) before p v, the
 # plain version keeps it in f32. The least atol that passes at this rtol
@@ -244,17 +266,23 @@ FLASH_BF16_TOL = dict(rtol=2e-2, atol=5e-3)
 FLASH_F32_TOL = dict(rtol=1e-5, atol=2e-6)
 # head dims above 256 in f32: the scores sum up to 1024 products (256 in the
 # other f32 checks), so their rounding, and the outputs', grows with D; an
-# H100 read a max abs err of 4.9e-6 at D = 1000.  16-bit: the wide instance
-# keeps p and the accumulator in f32, as the plain version does, and rounds
-# only the output, so the two differ by at most an output ulp: ulp/|o| is
-# at most 2^-7 (bf16) or 2^-10 (fp16), hence rtol 8e-3 and 1e-3; atol 1e-5
-# covers outputs near zero (fp16 subnormals below 6.1e-5)
+# H100 read a max abs err of 4.9e-6 at D = 1000 (the SIMT kernel this route
+# had before).  16-bit: the wide route keeps p to 16 bits or more (two terms
+# of the input dtype) and the accumulator in f32, as the plain version keeps
+# p and o in f32, and rounds only the output, so the two differ by at most
+# about an output ulp: ulp/|o| is at most 2^-7 (bf16) or 2^-10 (fp16), hence
+# rtol 8e-3 and 1e-3; atol 1e-5 covers outputs near zero (fp16 subnormals
+# below 6.1e-5)
 FLASH_WIDE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
                   torch.bfloat16: dict(rtol=8e-3, atol=1e-5),
                   torch.float16: dict(rtol=1e-3, atol=1e-5)}
 FLASH_WIDE_DIMS = (320, 512, 1000)
-# the wide instance timed on one shape (no configuration has D > 128)
+# the wide route timed on one shape (no configuration has D > 128)
 FLASH_WIDE_TIMED = (2, 8, 1024, 512)
+# the f32 route and the wgmma kernel timed at the serving shape
+FLASH_SERVE_SHAPE = (8, 24, 2048, 128)
+# the split kernel's symbol in the library's SASS
+SPLIT_KERNEL = "flash_fwd_split_kernel"
 # at the serving shape the share of outputs bitwise the plain version's
 # must stay above this: a kernel wrong in a minority of rows, where the
 # outputs are small, would pass the tolerance alone
@@ -298,14 +326,6 @@ def atol_needed(got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
     return max(0.0, float(((g - w).abs() - rtol * w.abs()).max()))
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the peak rate for their type (f32 by default)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def phase_build() -> float:
     from repro_torch.kernels import build
     t0 = time.time()
@@ -323,6 +343,7 @@ def phase_kernels(d: int, block: int, seed: int = 0):
     from repro_torch.kernels.fused_adam import ref as FR
     from repro_torch.kernels.onebit import kernel as OK
     from repro_torch.kernels.onebit import ref as OR
+    from repro_torch.perf.device import kernel_bound
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -355,7 +376,7 @@ def phase_kernels(d: int, block: int, seed: int = 0):
     del pk, sc, ne, ne_r
     ms = time_ms(lambda: OK.ef_compress_fused(x, err, block))
     plain = time_ms(lambda: OR.ef_compress_fused(x, err, block))
-    b_ms, b_by = bound(12 * d + d / 8 + 4 * d / block, 5 * d)
+    b_ms, b_by = kernel_bound(12 * d + d / 8 + 4 * d / block, 5 * d)
     entries.append(dict(
         name="ef_compress", route="cuda",
         source="src/repro_torch/csrc/onebit.cu",
@@ -374,7 +395,7 @@ def phase_kernels(d: int, block: int, seed: int = 0):
     del out, out_r
     ms = time_ms(lambda: OK.decompress(pk_r, sc_r, block))
     plain = time_ms(lambda: OR.decompress(pk_r, sc_r, block))
-    b_ms, b_by = bound(4 * d + d / 8 + 4 * d / block, d)
+    b_ms, b_by = kernel_bound(4 * d + d / 8 + 4 * d / block, d)
     entries.append(dict(
         name="decompress", route="cuda",
         source="src/repro_torch/csrc/onebit.cu",
@@ -438,7 +459,7 @@ def phase_kernels(d: int, block: int, seed: int = 0):
     copies = (xa.clone(), m.clone(), v.clone())
     lib = time_ms(lambda: fused_adamw(*copies))
     del copies
-    b_ms, b_by = bound(28 * d, 12 * d)
+    b_ms, b_by = kernel_bound(28 * d, 12 * d)
     entries.append(dict(
         name="adam_step", route="cuda",
         source="src/repro_torch/csrc/fused_adam.cu",
@@ -975,27 +996,36 @@ def phase_profile(state) -> dict:
     return out
 
 
-def _hgmma_count(lib_path) -> int:
-    """HGMMA instructions in the SASS of the built library, or -1 where
-    the toolkit has no cuobjdump."""
+def _hgmma_by_kernel(lib_path, symbol: str) -> dict:
+    """HGMMA instructions in the SASS of each instance of kernel ``symbol``
+    in the built library: ``cuobjdump -sass`` split at each function's own
+    header."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        return -1
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            if symbol in name:
+                out[name] = 0
+        elif name in out and "HGMMA" in line:
+            out[name] += 1
+    return out
 
 
 def phase_flash(seed: int = 0):
-    """Both flash-attention kernels against their plain version: small
-    f32 shapes (SIMT) at tests/test_kernels.py's tolerance, ragged fp16
-    shapes (tensor cores), padded head dims in every dtype, then the
-    serving shape in bf16, timed beside the SIMT kernel, the plain version
-    and PyTorch's fused attention, and the wide instance (D > 256).  Returns
-    the three kernels' entries of the JSON line (launches filled later)."""
-    import torch.nn.functional as F
+    """The three flash-attention routes against their plain version: small
+    f32 shapes (the f32 route) at tests/test_kernels.py's tolerance, ragged
+    fp16 shapes (wgmma), padded head dims in every dtype, head dims above
+    256 (the wide route); then the wide route, the f32 route and the wgmma
+    kernel each timed beside the plain version, PyTorch's fused attention
+    in the same dtype and the bound.  Returns the three kernels' entries of
+    the JSON line (launches filled later)."""
+    from repro_torch.benchmarks import flash_bench
     from repro_torch.kernels import build
+    from repro_torch.perf.device import H100_OPS_PER_S
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as FR
     dev = torch.device("cuda")
@@ -1023,17 +1053,18 @@ def phase_flash(seed: int = 0):
     cases = [(s, d, causal, None) for s in (128, 256, 512)
              for d in (32, 64, 128) for causal in (True, False)]
     cases += [(256, 64, True, w) for w in (32, 64, 128)]
-    err_f32 = max(check((1, 2, s, d), torch.float32, causal, window,
-                        "flash_attention")[0]
-                  for s, d, causal, window in cases)
-    log(f"[flash] {len(cases)} small f32 cases (SIMT) ok (rtol 1e-5, atol "
-        f"2e-6), max abs err {err_f32:.3e}")
+    f32 = [check((1, 2, s, d), torch.float32, causal, window,
+                 "flash_attention") for s, d, causal, window in cases]
+    err_f32 = max(e for e, _ in f32)
+    log(f"[flash] {len(cases)} small f32 cases (the f32 route, split kernel) "
+        f"ok (rtol 1e-5, atol 2e-6), max abs err {err_f32:.3e}, least atol "
+        f"that passes at that rtol {max(n for _, n in f32):.3e}")
     fp16 = [(s, d, causal, w) for s in (200, 320) for d in (64, 128)
             for causal, w in ((True, None), (False, None), (True, 64))]
     f16 = [check((2, 3, s, d), torch.float16, causal, window,
                   "flash_attention_wgmma") for s, d, causal, window in fp16]
     err_f16 = max(e for e, _ in f16)
-    log(f"[flash] {len(fp16)} ragged fp16 cases (tensor cores) ok "
+    log(f"[flash] {len(fp16)} ragged fp16 cases (wgmma kernel) ok "
         f"({tol16}), max abs err {err_f16:.3e}, least atol that passes at "
         f"that rtol {max(n for _, n in f16):.3e}")
     pad, pad_need = {}, {}
@@ -1059,119 +1090,122 @@ def phase_flash(seed: int = 0):
                 wide[key], wide_need[key] = check(
                     (1, 2, 200, d), dtype, causal, window,
                     "flash_attention_wide", FLASH_WIDE_TOL[dtype])
-    log("[flash] head dims above 256 (wide SIMT instance) ok (" + "; ".join(
-        f"{str(t)[6:]} rtol {v['rtol']} / atol {v['atol']}"
-        for t, v in FLASH_WIDE_TOL.items()) + "), max abs err " + ", ".join(
-            f"{k} {v:.2e}" for k, v in wide.items()) + "; least atol that "
-        "passes at the case's rtol " + ", ".join(
+    log("[flash] head dims above 256 (the wide route, split kernel) ok ("
+        + "; ".join(f"{str(t)[6:]} rtol {v['rtol']} / atol {v['atol']}"
+                    for t, v in FLASH_WIDE_TOL.items()) + "), max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in wide.items())
+        + "; least atol that passes at the case's rtol " + ", ".join(
             f"{k} {v:.2e}" for k, v in wide_need.items()))
-    wb, wh, ws, wd = FLASH_WIDE_TIMED
-    q, k, v = qkv(FLASH_WIDE_TIMED, torch.bfloat16)
-    wide_t = dict(
-        shape=list(FLASH_WIDE_TIMED), dtype="bfloat16", causal=True,
-        ms=time_ms(lambda: FK.flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: FR.sdpa(q, k, v, causal=True), reps=5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)))
-    wide_t["bound_ms"], wide_t["bound_by"] = bound(
-        4 * wb * wh * ws * wd * q.element_size(), 2 * wb * wh * ws * ws * wd,
-        BF16_TENSOR_OPS_PER_S)
-    log(f"[flash] wide instance at {FLASH_WIDE_TIMED} bf16 causal: "
-        f"{wide_t['ms']:.3f} ms (plain {wide_t['plain_ms']:.3f} ms, "
-        f"scaled_dot_product_attention {wide_t['library_ms']:.3f} ms, bound "
-        f"{wide_t['bound_ms']:.3f} ms by {wide_t['bound_by']})")
-    del q, k, v
-    torch.cuda.empty_cache()
 
-    b, h, s, d = 8, 24, 2048, 128
-    q, k, v = qkv((b, h, s, d), torch.bfloat16)
-    want = FR.sdpa(q, k, v, causal=True)
-    stats = {}
-    for name, fn in (("flash_attention_wgmma", FK.flash_attention),
-                     ("flash_attention", FK.flash_attention_simt)):
-        got = fn(q, k, v, causal=True)
+    lib_path = build.build()
+    hgmma = _hgmma_by_kernel(lib_path, SPLIT_KERNEL)
+    if len(hgmma) < 3 or min(hgmma.values()) == 0:
+        raise AssertionError(f"flash: an instance of {SPLIT_KERNEL} without "
+                             f"HGMMA in its SASS: {hgmma}")
+    log(f"[flash] HGMMA in each split-kernel instance's SASS: {hgmma}")
+
+    def timed(shape, dtype, tol):
+        """One causal call at ``shape`` held to the plain version at
+        ``tol``, then benchmarks/flash_bench.py's timings on the same
+        inputs: ms, plain ms, library ms and the bound."""
+        b, h, s, d = shape
+        q, k, v = qkv(shape, dtype)
+        got = FK.flash_attention(q, k, v, causal=True)
+        want = FR.sdpa(q, k, v, causal=True)
         err = (got.float() - want.float()).abs()
         small = want.float().abs() < FLASH_SMALL_O
-        stats[name] = dict(
-            err=float(err.max()),
-            err_small_o=float(err[small].max()),
-            small_o_share=float(small.float().mean()),
-            atol_needed=atol_needed(got, want, FLASH_BF16_TOL["rtol"]),
-            same=float((got.view(torch.int16) == want.view(torch.int16))
-                       .float().mean()))
-        del err, small
-        log(f"[flash] {name} at (8, 24, 2048, 128) bf16 causal: max abs err "
-            f"{stats[name]['err']:.3e}, at |o| < {FLASH_SMALL_O} "
-            f"({stats[name]['small_o_share']:.4f} of outputs) "
-            f"{stats[name]['err_small_o']:.3e}; least atol that passes at "
-            f"rtol {FLASH_BF16_TOL['rtol']} "
-            f"{stats[name]['atol_needed']:.3e}; "
-            f"{stats[name]['same']:.4f} of outputs bitwise the plain "
-            "version's")
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **FLASH_BF16_TOL)
-        if stats[name]["same"] < FLASH_BITWISE_FLOOR:
-            raise AssertionError(f"flash {name}: only {stats[name]['same']} "
-                                 "of outputs bitwise the plain version's")
-        del got
-    del want
-    torch.cuda.empty_cache()
-    stats["flash_attention_wgmma"]["ms"] = time_ms(
-        lambda: FK.flash_attention(q, k, v, causal=True))
-    stats["flash_attention"]["ms"] = time_ms(
-        lambda: FK.flash_attention_simt(q, k, v, causal=True), reps=5)
-    plain = time_ms(lambda: FR.sdpa(q, k, v, causal=True), reps=5)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         is_causal=True))
-    # each of q, k, v read once and o written once; the causal half of
-    # the two (S x S x D) products
-    n_bytes = 4 * b * h * s * d * q.element_size()
-    n_ops = 2 * b * h * s * s * d
-    b_ms, b_by = bound(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S)
-    hgmma = _hgmma_count(build.build())
-    if hgmma == 0:
-        raise AssertionError("flash: no HGMMA instruction in the library")
-    for name, st in stats.items():
-        log(f"[flash] {name} at (8, 24, 2048, 128) bf16 causal ok "
-            f"({tol16}; {st['same']:.4f} of outputs bitwise the plain "
-            f"version's, floor {FLASH_BITWISE_FLOOR}), max abs err "
-            f"{st['err']:.3e}; {st['ms']:.3f} ms, "
-            f"{n_ops / (st['ms'] / 1e3) / 1e12:.1f} TFLOP/s")
-    log(f"[flash] plain {plain:.3f} ms, scaled_dot_product_attention "
-        f"{lib:.3f} ms, bound {b_ms:.3f} ms by {b_by}; HGMMA instructions "
-        f"in the library's SASS: {hgmma}")
-    del q, k, v
-    torch.cuda.empty_cache()
+        r = dict(shape=list(shape), dtype=str(dtype)[6:], causal=True,
+                 max_abs_err=float(err.max()),
+                 max_abs_err_small_o=float(err[small].max()),
+                 small_o_share=float(small.float().mean()),
+                 atol_needed=atol_needed(got, want, tol["rtol"]))
+        if dtype != torch.float32:
+            r["bitwise_share"] = float(
+                (got.view(torch.int16) == want.view(torch.int16))
+                .float().mean())
+        log(f"[flash] {shape} {r['dtype']} causal: max abs err "
+            f"{r['max_abs_err']:.3e}, least atol that passes at rtol "
+            f"{tol['rtol']} {r['atol_needed']:.3e} (checked at atol "
+            f"{tol['atol']})")
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        del got, want, err, small
+        torch.cuda.empty_cache()
+        r.update(flash_bench.time_case(q, k, v))
+        del q, k, v
+        torch.cuda.empty_cache()
+        r["tflops"] = 2 * b * h * s * s * d / (r["ms"] / 1e3) / 1e12
+        return r
+
+    wide_t = timed(FLASH_WIDE_TIMED, torch.bfloat16,
+                   FLASH_WIDE_TOL[torch.bfloat16])
+    log(f"[flash] wide route at {FLASH_WIDE_TIMED} bf16 causal ok: "
+        f"{wide_t['ms']:.3f} ms (plain "
+        f"{wide_t['plain_ms']:.3f} ms, scaled_dot_product_attention "
+        f"{wide_t['library_ms']:.3f} ms, bound {wide_t['bound_ms']:.3f} ms "
+        f"by {wide_t['bound_by']}), max abs err {wide_t['max_abs_err']:.3e}, "
+        f"{wide_t['bitwise_share']:.4f} of outputs bitwise the plain "
+        "version's")
+    f32_t = timed(FLASH_SERVE_SHAPE, torch.float32, FLASH_F32_TOL)
+    b, h, s, d = FLASH_SERVE_SHAPE
+    f32_t["split_floor_ms"] = (F32_SPLIT_PASSES * 2 * b * h * s * s * d
+                               / H100_OPS_PER_S["tf32"] * 1e3)
+    log(f"[flash] f32 route at {FLASH_SERVE_SHAPE} f32 causal ok "
+        f"(rtol {FLASH_F32_TOL['rtol']}, atol "
+        f"{FLASH_F32_TOL['atol']}; least atol that passes "
+        f"{f32_t['atol_needed']:.3e}): {f32_t['ms']:.3f} ms "
+        f"({f32_t['tflops']:.1f} TFLOP/s; plain "
+        f"{f32_t['plain_ms']:.3f} ms, f32 scaled_dot_product_attention "
+        f"{f32_t['library_ms']:.3f} ms, bound {f32_t['bound_ms']:.3f} ms by "
+        f"{f32_t['bound_by']} at the TF32 rate, the split's floor of "
+        f"{F32_SPLIT_PASSES} TF32 passes {f32_t['split_floor_ms']:.3f} ms), "
+        f"max abs err {f32_t['max_abs_err']:.3e}")
+    bf = timed(FLASH_SERVE_SHAPE, torch.bfloat16, FLASH_BF16_TOL)
+    log(f"[flash] wgmma kernel at {FLASH_SERVE_SHAPE} bf16 causal ok "
+        f"({tol16}; {bf['bitwise_share']:.4f} of outputs bitwise the plain "
+        f"version's, floor {FLASH_BITWISE_FLOOR}), max abs err "
+        f"{bf['max_abs_err']:.3e}, at |o| < {FLASH_SMALL_O} "
+        f"({bf['small_o_share']:.4f} of outputs) "
+        f"{bf['max_abs_err_small_o']:.3e}; least atol that passes at rtol "
+        f"{FLASH_BF16_TOL['rtol']} {bf['atol_needed']:.3e}; "
+        f"{bf['ms']:.3f} ms, "
+        f"{bf['tflops']:.1f} TFLOP/s; "
+        f"plain {bf['plain_ms']:.3f} ms, scaled_dot_product_attention "
+        f"{bf['library_ms']:.3f} ms, bound {bf['bound_ms']:.3f} ms by "
+        f"{bf['bound_by']}")
+    if bf["bitwise_share"] < FLASH_BITWISE_FLOOR:
+        raise AssertionError(f"flash wgmma: only {bf['bitwise_share']} of "
+                             "outputs bitwise the plain version's")
     common = dict(route="cuda",
                   replaces="src/repro/kernels/flash_attn/kernel.py:84",
-                  ok=True, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                  library_ms=lib)
+                  ok=True)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
     wgmma = dict(
         name="flash_attention_wgmma",
         source="src/repro_torch/csrc/flash_attn_sm90.cu",
-        max_abs_err=stats["flash_attention_wgmma"]["err"],
+        **{k: bf[k] for k in keys},
         max_abs_err_fp16_ragged=err_f16,
-        max_abs_err_small_o=stats["flash_attention_wgmma"]["err_small_o"],
-        atol_needed=stats["flash_attention_wgmma"]["atol_needed"],
-        atol_needed_padded=pad_need,
-        bitwise_share=stats["flash_attention_wgmma"]["same"],
-        ms=stats["flash_attention_wgmma"]["ms"], hgmma_in_sass=hgmma,
-        launches_per_prefill=28, **common)
-    simt = dict(
-        name="flash_attention", source="src/repro_torch/csrc/flash_attn.cu",
-        max_abs_err=stats["flash_attention"]["err"],
-        max_abs_err_f32_small=err_f32,
-        bitwise_share=stats["flash_attention"]["same"],
-        ms=stats["flash_attention"]["ms"], timed_on="bf16 serving shape",
-        max_abs_err_padded=pad, **common)
+        max_abs_err_small_o=bf["max_abs_err_small_o"],
+        atol_needed=bf["atol_needed"], atol_needed_padded=pad_need,
+        bitwise_share=bf["bitwise_share"], launches_per_prefill=28,
+        timed_on=bf["shape"], timed_dtype=bf["dtype"], **common)
+    f32_e = dict(
+        name="flash_attention",
+        source="src/repro_torch/csrc/flash_attn_sm90_split.cu",
+        **{k: f32_t[k] for k in keys},
+        split_floor_ms=f32_t["split_floor_ms"],
+        atol_needed=f32_t["atol_needed"], max_abs_err_f32_small=err_f32,
+        max_abs_err_padded=pad, hgmma_in_sass=hgmma,
+        launches_per_f32_prefill=28, timed_on=f32_t["shape"],
+        timed_dtype=f32_t["dtype"], **common)
     wide_e = dict(
-        name="flash_attention_wide", route="cuda",
-        source="src/repro_torch/csrc/flash_attn.cu",
-        replaces="src/repro/kernels/flash_attn/kernel.py:84", ok=True,
-        max_abs_err=max(wide.values()), max_abs_err_cases=wide,
-        atol_needed=wide_need, timed_on=wide_t.pop("shape"),
-        timed_dtype=wide_t.pop("dtype"), **wide_t)
-    return simt, wgmma, wide_e
+        name="flash_attention_wide",
+        source="src/repro_torch/csrc/flash_attn_sm90_split.cu",
+        **{k: wide_t[k] for k in keys},
+        max_abs_err_cases=wide, atol_needed=wide_need,
+        bitwise_share=wide_t["bitwise_share"], hgmma_in_sass=hgmma,
+        timed_on=wide_t["shape"], timed_dtype=wide_t["dtype"], **common)
+    return f32_e, wgmma, wide_e
 
 
 def _teacher_forced(eng, toks: torch.Tensor, s: int, n: int):
@@ -1215,7 +1249,7 @@ def phase_serve_small() -> float:
             or after["flash_attention_wgmma"]
             != before["flash_attention_wgmma"]):
         raise AssertionError("serve-small: the card's f32 prefill did not "
-                             "run the SIMT flash kernel once per layer")
+                             "run the f32 flash route once per layer")
     cpu = _teacher_forced(ServeEngine(cfg, params, device="cpu"), toks,
                           sp["prompt"], sp["steps"])
     err = 0.0
@@ -1305,6 +1339,88 @@ def phase_serve_main():
         f"{stats['decode_tokens_per_s']:.1f} tokens/s in decode, peak "
         f"memory {peak} bytes, launches {counts}, set-up {setup_s:.1f} s")
     return counts, stats, eng, prompts
+
+
+def phase_serve_f32() -> dict:
+    """Phase 9b: the f32 prefill at full llama3.2-3b width through
+    ServeEngine.generate; launch counts read around exactly the measured
+    generate call; last-position logits against attn_impl="full"."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    sv = SERVE_F32
+    cfg = dataclasses.replace(get_config(sv["arch"]), attn_impl="pallas",
+                              compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(sv["seed"])
+    t0 = time.perf_counter()
+    # the f32 weights are the engine's own (no cast); the full-attention
+    # engine below shares them
+    eng = ServeEngine(cfg, T.init_params(cfg, gen, device="cuda"),
+                      device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (sv["batch"], sv["prompt"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up on a short prompt: the f32 cuBLAS paths, the kernel's first
+    # launch
+    eng.generate(prompts[:, :128], GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, GenerationConfig(
+        max_new_tokens=sv["new_tokens"]))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
+            "flash_attention": cfg.n_layers, "flash_attention_wgmma": 0,
+            "flash_attention_wide": 0}
+    if counts != want:
+        raise AssertionError(f"serve-f32 launch counts {counts}, expected "
+                             f"{want}")
+    tokens = out["tokens"]
+    if tuple(tokens.shape) != (sv["batch"], sv["new_tokens"]) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"serve-f32: bad tokens {tokens.shape}")
+    full = ServeEngine(dataclasses.replace(cfg, attn_impl="full"),
+                       eng.params, device="cuda")
+    with torch.inference_mode():
+        got, _ = T.prefill(eng.params, {"tokens": prompts}, cfg)
+        ref, _ = T.prefill(full.params, {"tokens": prompts}, full.cfg)
+    got, ref = got[:, :cfg.vocab].float(), ref[:, :cfg.vocab].float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("serve-f32: non-finite logits")
+    err = float((got - ref).abs().max())
+    need = atol_needed(got, ref, SERVE_F32_TOL["rtol"])
+    first_same = float((got.argmax(-1) == tokens[:, 0]).float().mean())
+    torch.testing.assert_close(got, ref, **SERVE_F32_TOL)
+    stats = dict(
+        arch=sv["arch"], compute_dtype="float32", batch=sv["batch"],
+        prompt=sv["prompt"], new_tokens=sv["new_tokens"], setup_s=setup_s,
+        prefill_ms=out["prefill_ms"], decode_ms=out["decode_ms"],
+        generate_wall_ms=wall_ms,
+        prefill_tokens_per_s=sv["batch"] * sv["prompt"]
+        / (out["prefill_ms"] / 1e3),
+        peak_bytes=peak, launches=counts, logits_max_abs_err=err,
+        logits_atol_needed=need, logits_abs_max=float(ref.abs().max()),
+        first_token_matches_prefill_argmax=first_same)
+    log(f"[serve-f32] {sv['arch']} f32, batch {sv['batch']} x prompt "
+        f"{sv['prompt']}, {sv['new_tokens']} new tokens: prefill "
+        f"{out['prefill_ms']:.1f} ms, decode "
+        + ", ".join(f"{x:.2f}" for x in out["decode_ms"])
+        + f" ms, generate wall {wall_ms:.1f} ms, peak memory {peak} bytes, "
+        f"launches {counts}; last-position logits against attn_impl="
+        f"\"full\" within rtol/atol 1e-4: max abs err {err:.3e} (|logits| "
+        f"up to {stats['logits_abs_max']:.3f}), least atol that passes "
+        f"{need:.3e}; first token = the prefill argmax in {first_same:.3f} "
+        f"of rows; set-up {setup_s:.1f} s")
+    del eng, full, prompts, got, ref
+    torch.cuda.empty_cache()
+    return stats
 
 
 def _flat_grad(ts, batch) -> float:
@@ -1697,12 +1813,13 @@ def main() -> int:
     phase_pipeline_small()
     pipe = phase_pipeline(stats["losses"], main_state)
     family["pipeline"] = pipe
-    simt, wgmma, wide = phase_flash()
+    f32, wgmma, wide = phase_flash()
     phase_serve_small()
     serve_counts, serve_stats, eng, prompts = phase_serve_main()
     serve_stats["profile"] = phase_serve_profile(eng, prompts)
     del eng, prompts
     torch.cuda.empty_cache()
+    serve_f32 = phase_serve_f32()
     oracles = phase_oracles()
     claims = phase_claims()
     torch.cuda.empty_cache()
@@ -1712,8 +1829,14 @@ def main() -> int:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
                                 for tag, f in family.items()}
-    for e in (simt, wgmma, wide):
-        e["launches"] = serve_counts[e["name"]]
+    for e in (f32, wgmma, wide):
+        # the main path of each route: serving in bf16 (phase 9) for the
+        # wgmma kernel, in f32 (phase 9b) for the f32 route; no path has
+        # D > 256
+        e["launches"] = (serve_f32["launches"] if e is f32
+                         else serve_counts)[e["name"]]
+        e["launches_serve_bf16"] = serve_counts[e["name"]]
+        e["launches_serve_f32"] = serve_f32["launches"][e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
                                 for tag, f in family.items()}
         entries.append(e)
@@ -1728,6 +1851,7 @@ def main() -> int:
                                       if k != "pipeline"}}))
     print(json.dumps({"pipeline_path": pipe}))
     print(json.dumps({"serve_path": serve_stats}))
+    print(json.dumps({"serve_f32_path": serve_f32}))
     print(json.dumps({"oracles": oracles}))
     print(json.dumps({"claims": claims}))
     print(json.dumps({"plan": plan}))

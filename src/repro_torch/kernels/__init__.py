@@ -2,6 +2,6 @@
 
 ``onebit``      EF 1-bit compress and decompress (``csrc/onebit.cu``)
 ``fused_adam``  fused BertAdam update (``csrc/fused_adam.cu``)
-``flash_attn``  flash-attention forward (``csrc/flash_attn.cu``)
+``flash_attn``  flash-attention forward (``csrc/flash_attn_sm90*.cu``)
 ``build``       builds ``csrc/*.cu`` into one ctypes library; launch counts
 """

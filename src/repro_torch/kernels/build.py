@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together), linked into ONE shared
 library with a plain C interface, and loaded with ``ctypes``.  The
 library lands in ``build/repro_torch_kernels/<hash>/`` at the root of the
-checkout, keyed on a hash of the sources and the flags, so the first call
+checkout, keyed on a hash of the sources, the ``csrc/*.cuh`` headers they
+include and the flags, so the first call
 in a fresh checkout builds it and later calls on an unchanged tree reuse
 it.  A failed build raises; nothing falls back to the plain versions.
 
@@ -50,9 +51,9 @@ _SIGNATURES = {
     "repro_flash_attention_wgmma": ((_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                      ctypes.c_int, ctypes.c_int, _I64, _P),
                                     ctypes.c_int),
-    "repro_flash_attention_wide": ((_P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                    _I64, ctypes.c_int, ctypes.c_int, _I64,
-                                    _P), ctypes.c_int),
+    "repro_flash_attention_wide": ((_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                    ctypes.c_int, ctypes.c_int, _I64, _P),
+                                   ctypes.c_int),
     "repro_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 
@@ -82,8 +83,9 @@ def _sources():
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

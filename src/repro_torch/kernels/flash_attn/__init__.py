@@ -1,3 +1,4 @@
-"""Flash-attention forward: Hopper kernels (``csrc/flash_attn_sm90.cu`` for
-bf16/fp16 on the tensor cores, ``csrc/flash_attn.cu`` for f32) and their
-plain PyTorch version."""
+"""Flash-attention forward: Hopper tensor-core kernels
+(``csrc/flash_attn_sm90.cu`` for bf16/fp16 up to D = 256,
+``csrc/flash_attn_sm90_split.cu`` for f32 and for every dtype above) and
+their plain PyTorch version."""

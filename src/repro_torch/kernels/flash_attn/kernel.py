@@ -1,29 +1,32 @@
 """Wrappers around the Hopper flash-attention kernels.
 
-Both replace the TPU kernel ``src/repro/kernels/flash_attn/kernel.py``
-(``flash_attention``, body ``_flash_kernel``).  The route is decided by
-dtype alone, never by a failure:
+Every route replaces the TPU kernel ``src/repro/kernels/flash_attn/kernel.py``
+(``flash_attention``, body ``_flash_kernel``) and runs on the tensor cores
+(wgmma).  The route is decided by dtype and head dim alone, never by a
+failure:
 
-* head dims 1..256: bf16 and fp16 take the tensor-core kernel
-  (``csrc/flash_attn_sm90.cu``: wgmma + TMA, counted as
-  ``flash_attention_wgmma``), f32 the exact SIMT kernel
-  (``csrc/flash_attn.cu`` ``repro_flash_attention``, counted as
-  ``flash_attention``);
-* head dims above 256, in f32, bf16 and fp16: the SIMT instance that
-  streams D in 64-column slices with an f32 accumulator in global scratch
-  (``csrc/flash_attn.cu`` ``repro_flash_attention_wide``, counted as
-  ``flash_attention_wide``).  No configuration has D > 128; it is there so the
-  wrappers take every D the reference takes.
+* bf16 and fp16 with head dims 1..256: the wgmma + TMA kernel
+  (``csrc/flash_attn_sm90.cu`` ``repro_flash_attention_wgmma``, counted as
+  ``flash_attention_wgmma``);
+* f32 with head dims 1..256: the split kernel
+  (``csrc/flash_attn_sm90_split.cu`` ``repro_flash_attention``, counted as
+  ``flash_attention``), which runs each f32 product as six bf16 products
+  of three-term splits and keeps f32 accuracy;
+* head dims above 256, in f32, bf16 and fp16: the same split kernel, one
+  CTA per 128 query rows (two warpgroups of 64) and output slice of 128
+  (f32) or 256 (16-bit) columns (``repro_flash_attention_wide``, counted as
+  ``flash_attention_wide``).  No configuration has D > 128; it is there so
+  the wrappers take every D the reference takes.
 
 A D that a kernel has no instance for is zero-padded on the card to the
-next instantiated one (a multiple of 64 above 256), the kernel scales the
-scores by the true D, and the output is sliced back (zero columns leave
-q.k unchanged; zero v columns give output columns that are dropped).
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output with ``torch.empty``, launches on
-``torch.cuda.current_stream()`` without synchronising, counts the launch,
-and raises if the entry point reports a CUDA error.  CUDA tensors only:
-the plain version lives in ``ref.py``.  Both kernels take any S.
+next instantiated one (64/128/256 for the wgmma kernel, a multiple of 64
+for the split kernel), the kernel scales the scores by the true D, and the
+output is sliced back (zero columns leave q.k unchanged; zero v columns
+give output columns that are dropped).  The wrapper checks device, dtype,
+shape and contiguity, allocates the output with ``torch.empty``, launches
+on ``torch.cuda.current_stream()`` without synchronising, counts the
+launch, and raises if the entry point reports a CUDA error.  CUDA tensors
+only: the plain version lives in ``ref.py``.  Every kernel takes any S.
 """
 from __future__ import annotations
 
@@ -34,13 +37,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-# head dims each kernel has an instance for; above MAX_HEAD_DIM the wide
-# SIMT instance takes any multiple of WIDE_SLICE
+# head dims the wgmma kernel has an instance for (16-bit, D <= MAX_HEAD_DIM);
+# the split kernel takes any multiple of SPLIT_CHUNK (f32, and every dtype
+# above MAX_HEAD_DIM)
 MAX_HEAD_DIM = 256
-SIMT_HEAD_DIMS = (32, 64, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)
-WIDE_SLICE = 64
-_SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_CHUNK = 64
+_F32_DTYPES = {torch.float32: 0}
 _WGMMA_DTYPES = {torch.bfloat16: 1, torch.float16: 2}
 _WIDE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -50,10 +53,9 @@ def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
     zero-padded to: the smallest one >= d of the kernel it routes to."""
     if d < 1:
         raise ValueError(f"flash_attention: head dim {d} must be >= 1")
-    if d > MAX_HEAD_DIM:
-        return -(-d // WIDE_SLICE) * WIDE_SLICE
-    dims = WGMMA_HEAD_DIMS if dtype in _WGMMA_DTYPES else SIMT_HEAD_DIMS
-    return next(x for x in dims if x >= d)
+    if d > MAX_HEAD_DIM or dtype not in _WGMMA_DTYPES:
+        return -(-d // SPLIT_CHUNK) * SPLIT_CHUNK
+    return next(x for x in WGMMA_HEAD_DIMS if x >= d)
 
 
 def with_padded_head_dim(fn: Callable[..., torch.Tensor], q: torch.Tensor,
@@ -110,24 +112,9 @@ def _launcher(entry: str, dtypes, counter: str):
     return run
 
 
-_run_simt = _launcher("repro_flash_attention", _SIMT_DTYPES,
-                      "flash_attention")
-
-
-def _run_wide(q, k, v, causal, window, head_dim):
-    b, h, s, d = q.shape
-    out = torch.empty_like(q)
-    acc = torch.empty((b * h, s, d), dtype=torch.float32, device=q.device)
-    rc = build.load().repro_flash_attention_wide(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        acc.data_ptr(), b * h, s, d, head_dim, _WIDE_DTYPES[q.dtype],
-        int(causal), window or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "flash_attention_wide")
-    build.bump("flash_attention_wide")
-    return out
-
-
+_run_f32 = _launcher("repro_flash_attention", _F32_DTYPES, "flash_attention")
+_run_wide = _launcher("repro_flash_attention_wide", _WIDE_DTYPES,
+                      "flash_attention_wide")
 _run_wgmma = _launcher("repro_flash_attention_wgmma", _WGMMA_DTYPES,
                        "flash_attention_wgmma")
 
@@ -136,25 +123,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None
                     ) -> torch.Tensor:
     """q/k/v: (B, H, S, D) on the card -> (B, H, S, D) in q's dtype.
-    D <= 256: bf16 and fp16 take the tensor-core kernel, f32 the SIMT
-    kernel; D > 256 takes the wide SIMT instance in every dtype."""
+    D <= 256: bf16 and fp16 take the wgmma kernel, f32 the split kernel;
+    D > 256 takes the split kernel's wide route in every dtype."""
     if q.shape[-1] > MAX_HEAD_DIM:
         _check(q, k, v, window, _WIDE_DTYPES)
         return with_padded_head_dim(_run_wide, q, k, v, causal, window)
     if q.dtype in _WGMMA_DTYPES:
         _check(q, k, v, window, _WGMMA_DTYPES)
         return with_padded_head_dim(_run_wgmma, q, k, v, causal, window)
-    _check(q, k, v, window, _SIMT_DTYPES)
-    return with_padded_head_dim(_run_simt, q, k, v, causal, window)
-
-
-def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: Optional[int] = None
-                         ) -> torch.Tensor:
-    """The SIMT kernel on f32 or bf16, whatever the route: for timing the
-    two kernels on the same bf16 inputs (D <= 256).  No model path calls
-    it."""
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError("flash_attention_simt: head dim above 256")
-    _check(q, k, v, window, _SIMT_DTYPES)
-    return with_padded_head_dim(_run_simt, q, k, v, causal, window)
+    _check(q, k, v, window, _F32_DTYPES)
+    return with_padded_head_dim(_run_f32, q, k, v, causal, window)

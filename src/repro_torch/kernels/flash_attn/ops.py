@@ -3,8 +3,9 @@
 As ``repro/kernels/flash_attn/ops.py``: block sizes ``bq``/``bk`` default
 to 256 and are clamped to S, and S must be a multiple of both (the
 reference asserts; here ``ValueError``).  A CUDA tensor takes a Hopper
-kernel (``kernel.py``: bf16 and fp16 the tensor-core kernel, f32 the exact
-SIMT kernel; their own tiles only change the order of the f32 sums), which
+kernel (``kernel.py``: bf16 and fp16 the wgmma kernel, f32 and head dims
+above 256 the split kernel, whose three-term bf16 products keep f32
+accuracy; their own tiles only change the order of the f32 sums), which
 raises on what it does not take; a CPU tensor takes the plain version
 (``ref.py``).  Any other device raises.
 """

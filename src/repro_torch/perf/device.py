@@ -132,6 +132,23 @@ DEVICES: Dict[str, DeviceSpec] = {
                            ici_bw=1e10, backend="cpu"),
 }
 
+# the same data sheet's dense peak for each operand type, for one kernel's
+# roofline bound (``kernel_bound``): f32 on the FMA pipe, f32 operands on
+# the tensor cores at the TF32 rate, and the 16-bit types
+H100_OPS_PER_S = {"f32": 67e12, "tf32": 495e12,
+                  "bf16": DEVICES["h100-sxm"].peak_flops,
+                  "fp16": DEVICES["h100-sxm"].peak_flops}
+
+
+def kernel_bound(n_bytes: float, n_ops: float, ops: str = "f32"):
+    """(ms, "bytes" or "operations"): the least time an H100 SXM takes to
+    move ``n_bytes`` through HBM and do ``n_ops`` operations of type
+    ``ops`` (a key of ``H100_OPS_PER_S``), whichever is longer."""
+    t_bytes = n_bytes / DEVICES["h100-sxm"].hbm_bw * 1e3
+    t_ops = n_ops / H100_OPS_PER_S[ops] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 MEASURED_PREFIX = "measured:"
 
 

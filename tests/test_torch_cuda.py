@@ -16,11 +16,13 @@ Tolerances: packed sign bits and decompress bitwise; scales rtol 1e-6 and
 new_err rtol 1e-5 / atol 1e-6 (the block sum runs in another order than
 torch's mean); Adam rtol 1e-5 / atol 5e-7 (tests/test_kernels.py's);
 flash attention f32 rtol 1e-5 / atol 2e-6 (tests/test_kernels.py's; the
-online softmax sums in another order), bf16 and fp16 rtol 2e-2 (that
-file's bf16 rtol) / atol 5e-3 (the tensor-core kernel rounds p to the
-input dtype before p v; chip_smoke.py reads the least atol that passes,
-at most 2.9e-3); head dims above 256 (the wide SIMT instance) f32 rtol
-1e-5 / atol 1e-5 (the scores sum up to 1024 products), 16-bit as above.
+online softmax sums in another order; the f32 route's three-term bf16
+split keeps f32 accuracy), bf16 and fp16 rtol 2e-2 (that file's bf16
+rtol) / atol 5e-3 (the wgmma kernel rounds p to the input dtype before
+p v; chip_smoke.py reads the least atol that passes, at most 2.9e-3);
+head dims above 256 (the split kernel's wide route) f32 rtol 1e-5 / atol
+1e-5 (the scores sum up to 1024 products), 16-bit at one output ulp
+(``WIDE_TOL``).
 """
 import numpy as np
 import pytest
@@ -182,8 +184,8 @@ def _flash_case(card, shape, dtype, causal, window, fn=None, tol=None):
     ((2, 3, 320, 128), torch.bfloat16, True, None),
 ])
 def test_flash_kernel_matches_plain(card, shape, dtype, causal, window):
-    """Each dtype takes its route: f32 the SIMT kernel, bf16 the
-    tensor-core kernel."""
+    """Each dtype takes its route: f32 the split kernel, bf16 the wgmma
+    kernel."""
     moved = _flash_case(card, shape, dtype, causal, window)
     assert moved == ({"flash_attention"} if dtype == torch.float32
                      else {"flash_attention_wgmma"})
@@ -206,8 +208,8 @@ def test_wgmma_flash_matches_plain(card, s, d, dtype, causal, window):
                                    torch.float16])
 def test_flash_kernel_head_dims(card, d, dtype):
     """Every D from 1 to 256 is taken (zero-padded to an instance of the
-    dtype's kernel); D = 300 takes the wide SIMT instance (padded to 320)
-    in every dtype."""
+    dtype's kernel); D = 300 takes the wide route (the split kernel, padded
+    to 320) in every dtype."""
     moved = _flash_case(card, (1, 2, 200, d), dtype, True, None)
     assert moved == ({"flash_attention"} if dtype == torch.float32
                      else {"flash_attention_wgmma"})
@@ -218,10 +220,11 @@ def test_flash_kernel_head_dims(card, d, dtype):
 
 # f32 above D = 256: the scores sum up to 1024 products, so their rounding
 # grows with D (an H100 read a max abs err of 4.9e-6 at D = 1000).  16-bit:
-# the wide instance keeps p and the accumulator in f32, as the plain version
-# does, and rounds only the output, so the two differ by at most an output
-# ulp: ulp/|o| is at most 2^-7 (bf16) or 2^-10 (fp16), hence rtol 8e-3 and
-# 1e-3; atol 1e-5 covers outputs near zero (fp16 subnormals below 6.1e-5)
+# the wide route keeps p to 16 bits or more (two terms of the input dtype)
+# and the accumulator in f32, as the plain version keeps p and o in f32, and
+# rounds only the output, so the two differ by at most about an output ulp:
+# ulp/|o| is at most 2^-7 (bf16) or 2^-10 (fp16), hence rtol 8e-3 and 1e-3;
+# atol 1e-5 covers outputs near zero (fp16 subnormals below 6.1e-5)
 WIDE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
             torch.bfloat16: dict(rtol=8e-3, atol=1e-5),
             torch.float16: dict(rtol=1e-3, atol=1e-5)}
@@ -233,8 +236,9 @@ WIDE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 64)])
 def test_wide_flash_matches_plain(card, d, dtype, causal, window):
-    """Head dims above 256 in every dtype take the wide SIMT instance
-    (D streamed in 64-column slices, the accumulator in f32 scratch)."""
+    """Head dims above 256 in every dtype take the wide route (the split
+    kernel: one CTA per 256 (16-bit) or 128 (f32) output columns, q and k
+    streamed through the score in 64-column chunks above 512 / 128)."""
     moved = _flash_case(card, (1, 2, 200, d), dtype, causal, window,
                         tol=WIDE_TOL[dtype])
     assert moved == {"flash_attention_wide"}
@@ -255,11 +259,12 @@ def test_segment_norms_are_deterministic(card):
         torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=0.0)
 
 
-def test_simt_flash_kernel_takes_bf16(card):
-    """The SIMT kernel on bf16 (timed beside the tensor-core kernel) is
-    counted as its own route."""
-    moved = _flash_case(card, (1, 2, 320, 128), torch.bfloat16, True, None,
-                        fa_kernel.flash_attention_simt)
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 256)])
+def test_f32_route_long_sequence(card, causal, window):
+    """The f32 route over many kv tiles (S = 1536, 48 of its 32-key tiles)
+    keeps the f32 tolerance: each tile's p v is summed into o in f32."""
+    moved = _flash_case(card, (1, 4, 1536, 128), torch.float32, causal,
+                        window)
     assert moved == {"flash_attention"}
 
 

@@ -111,6 +111,14 @@ def test_presets():
     assert cpu.hbm_capacity == jcpu.hbm_capacity
     assert tdevice.list_devices() == ["cpu-host", "h100-sxm"]
     assert tdevice.as_device("h100-sxm") is h100
+    # one kernel's bound: the H100 data sheet's HBM rate and the peak of
+    # the operations' type, whichever binds
+    assert tdevice.H100_OPS_PER_S["bf16"] == h100.peak_flops
+    assert tdevice.kernel_bound(3.35e9, 1.0) == (1.0, "bytes")
+    assert tdevice.kernel_bound(0.0, 67e9) == (1.0, "operations")
+    assert tdevice.kernel_bound(0.0, 495e9, "tf32") == (1.0, "operations")
+    with pytest.raises(KeyError):
+        tdevice.kernel_bound(0.0, 1.0, "f64")
     with pytest.raises(KeyError):
         tdevice.get_device("tpu-v5e")
     with pytest.raises(ValueError):
