@@ -128,13 +128,40 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                beside phase 5's compressed walls and phase 6's device-busy
                ms, and their ratios (a measurement only).  Prints the
                ``{"plan": {...}}`` line.
+ 14. obs    — observability (``repro_torch.obs``).  14a, in this process:
+               ``run`` on the main path (full BERT-Large, 3 + 3 steps, seed
+               0) with ``telemetry``, ``memory="on"`` and ``audit="on",
+               audit_every=1``: losses and the final x, m, worker_err and
+               server_err bitwise phase 5's; launch counts read around
+               exactly this run (phase 5's plus one ef_compress and one
+               decompress an audited step); the log validates
+               (``repro_torch.obs.events.validate_records``) with 6 step,
+               3 fidelity and 3 audit health events, one predicted and
+               one measured (``compiled``) memory event for each step
+               program, and live samples; each measured program's
+               attributed + residual equals its total; the predicted and
+               measured peaks beside phase 5's, the compressed walls beside
+               phase 5's.  14b, in a fresh process (a second profiler
+               session in one process once read no device time): the CLI
+               ``python -m repro_torch.launch.train`` with 4 buckets,
+               backward overlap, ``--telemetry``, ``--profile`` of the last
+               2 steps, ``--memory on`` and ``--bench obs_smoke``: exit 0,
+               one ``profile`` event with t_attributed > 0 and
+               t_attributed + t_residual = t_window, a cell for every
+               (bucket, stage) op of ``pipe(flat/onebit)x4`` and the
+               ready-order table, a ``BENCH_obs_smoke.json`` that
+               ``load_ledger`` reads.  Then the predicted ledgers of phase
+               6b's zero1 run with accumulation 2 (host math only) beside
+               the peak phase 6b measured.  Prints the ``{"obs": {...}}``
+               line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
 phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
-phase 12, the sweep and the auto run in phase 13) and read just after it.
-It prints the ``{"kernels": [...]}`` line, the card line, and as its last
-line ``{"ok": true, "device": {...}}``.
+phase 12, the sweep and the auto run in phase 13, the observed run in
+phase 14a) and read just after it.  It prints the ``{"kernels": [...]}``
+line, the card line, and as its last line ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -238,6 +265,22 @@ PLAN_RUN = dict(topology="auto", pipeline="auto", overlap_bwd="auto",
                 cluster="ethernet-10g")
 # a fitted rate above the data sheet's by more than this is a failed fit
 PLAN_SHARE_MAX = 1.05
+
+# phase 14: the main path with telemetry, the memory ledger and the audit
+# on every compressed step (14a); the CLI with the pipelined exchange,
+# backward overlap and a profile of the last two steps (14b)
+OBS_RUN = dict(memory="on", audit="on", audit_every=1)
+# phase 5's launches plus one ef_compress and one decompress an audited
+# step (the probe's round trip of the compressed momentum)
+OBS_LAUNCHES = dict(EXPECTED_LAUNCHES, ef_compress=9, decompress=9)
+OBS_CLI = ["--arch", "bert-large", "--steps", "6", "--warmup-steps", "3",
+           "--batch", "16", "--seq", "128", "--pipeline", "4",
+           "--overlap-bwd", "on", "--profile-steps", "2", "--memory", "on",
+           "--bench", "obs_smoke"]
+OBS_CLI_TIMEOUT_S = 600
+# attributed + residual is the window by construction; in floating point
+# the sum may miss it by rounding
+OBS_WINDOW_ATOL_S = 1e-12
 
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
@@ -1782,6 +1825,215 @@ def phase_plan(main_losses, main_state, main_stats) -> dict:
             "ratio_busy": busy / pred_ms}
 
 
+def _obs_log(path):
+    from repro_torch.obs.events import validate_records
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    validate_records(recs)
+    return recs
+
+
+def _check_attribution(tag: str, mem: dict) -> dict:
+    """A measured (``compiled``) memory event: attributed + residual is
+    its output + temporary bytes, exactly."""
+    total = mem["output_bytes"] + mem["temp_bytes"]
+    if mem["attributed_bytes"] + mem["residual_bytes"] != total:
+        raise AssertionError(f"obs {tag}: {mem['program']} attributed "
+                             f"{mem['attributed_bytes']} + residual "
+                             f"{mem['residual_bytes']} != {total}")
+    return {k: mem[k] for k in ("program", "argument_bytes", "output_bytes",
+                                "temp_bytes", "peak_bytes",
+                                "attributed_bytes", "residual_bytes",
+                                "residual_frac", "attribution")}
+
+
+def phase_obs(main_losses, main_state, main_stats, family) -> dict:
+    """Phase 14: the main path observed in process (14a), the CLI with a
+    profile in a fresh process (14b), the open memory reading."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import run
+    from repro_torch.obs.bench import load_ledger
+    from repro_torch.obs.mem import predict_ledger
+    from repro_torch.optim import get_compressor, get_optimizer
+    from repro_torch.pipeline import Bucketer, lower_to_pipelined
+    from repro_torch.pipeline.executor import scoped_op_names
+    from repro_torch.obs.profile import cell_key, parse_scope
+    from repro_torch.plan import flat_schedule
+    from repro_torch.train.step import flat_dim
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    out = {}
+    try:
+        # --- 14a: in process ------------------------------------------
+        tel = os.path.join(workdir, "tel")
+        torch.cuda.empty_cache()
+        build.reset_launch_counts()
+        res = run(device="cuda", **MAIN, **OBS_RUN, telemetry=tel)
+        counts = build.launch_counts()
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        ts = res["state"]
+        same = {"losses": losses == main_losses,
+                "x": torch.equal(ts.x.cpu(), main_state["x"])}
+        for k in PIPE_STATE:
+            same[k] = torch.equal(ts.opt[k].cpu(), main_state[k])
+        del ts, res
+        torch.cuda.empty_cache()
+        log(f"[obs] 14a: losses " + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; bitwise phase 5's: {same}; launches {counts}")
+        if not all(same.values()):
+            raise AssertionError(f"obs: the observed run is not bitwise "
+                                 f"phase 5's {same}")
+        if counts != OBS_LAUNCHES:
+            raise AssertionError(f"obs: launch counts {counts}, expected "
+                                 f"{OBS_LAUNCHES}")
+        recs = _obs_log(os.path.join(tel, "telemetry.jsonl"))
+        by = {}
+        for r in recs:
+            by.setdefault(r["type"], []).append(r)
+        mems = by.get("memory", [])
+        kinds = [m["kind"] for m in mems]
+        audit_health = [r for r in by.get("health", [])
+                        if r.get("source") == "repro_torch.obs.audit"]
+        compiled = {m["program"]: m for m in mems if m["kind"] == "compiled"}
+        found = {"step": len(by.get("step", [])),
+                 "fidelity": len(by.get("fidelity", [])),
+                 "audit_health": len(audit_health),
+                 "predicted": kinds.count("predicted"),
+                 "compiled": sorted(compiled), "live": kinds.count("live")}
+        want = {"step": 6, "fidelity": 3, "audit_health": 3,
+                "predicted": 1, "compiled": ["compressed", "warmup"],
+                "live": 6}
+        log(f"[obs] 14a log: {len(recs)} records validated; {found}")
+        if found != want:
+            raise AssertionError(f"obs: the log holds {found}, expected "
+                                 f"{want}")
+        att = {p: _check_attribution("14a", m) for p, m in compiled.items()}
+        [pred] = [m for m in mems if m["kind"] == "predicted"]
+        peak5 = main_stats["peak_bytes"]
+        for p, a in sorted(att.items()):
+            log(f"[obs] 14a {p}: measured peak {a['peak_bytes']:.0f} B "
+                f"(arguments {a['argument_bytes']:.0f}, outputs "
+                f"{a['output_bytes']:.0f}, temporaries "
+                f"{a['temp_bytes']:.0f}); attributed "
+                f"{a['attributed_bytes']:.0f} + residual "
+                f"{a['residual_bytes']:.0f} (residual_frac "
+                f"{a['residual_frac']:.4f}) {a['attribution']}")
+        log(f"[obs] 14a predicted total {pred['total_bytes']:.0f} B "
+            f"{pred['categories']}; phase 5's peak {peak5} B")
+        comp_ms = [h["ms"] for h in hist[MAIN["warmup_steps"]:]]
+        log(f"[obs] 14a compressed step ms {comp_ms} (audit probe before "
+            f"each, outside the wall) vs phase 5's "
+            f"{main_stats['compressed_step_ms']}")
+        fid = by["fidelity"][-1]
+        out["a"] = {"launches": counts, "bitwise_main": same,
+                    "records": found, "predicted": pred["categories"],
+                    "predicted_total": pred["total_bytes"],
+                    "measured": att, "main_peak_bytes": peak5,
+                    "compressed_step_ms": comp_ms,
+                    "main_compressed_step_ms":
+                    main_stats["compressed_step_ms"],
+                    "warmup_step_ms": [h["ms"] for h in
+                                       hist[:MAIN["warmup_steps"]]],
+                    "fidelity_last": {k: fid.get(k) for k in
+                                      ("v_ratio", "v_drift_max",
+                                       "cos_sim_min", "sign_agree_min",
+                                       "grad_norm")},
+                    "health_ok": [r["ok"] for r in audit_health]}
+
+        # --- 14b: the CLI, in a fresh process ---------------------------
+        d = os.path.join(workdir, "cli")
+        prof = os.path.join(d, "prof")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train"] + \
+            OBS_CLI + ["--telemetry", d, "--profile", prof]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=OBS_CLI_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[obs] 14b | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"obs: the CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        recs = _obs_log(os.path.join(d, "telemetry.jsonl"))
+        profs = [r for r in recs if r["type"] == "profile"]
+        if len(profs) != 1:
+            raise AssertionError(f"obs: {len(profs)} profile events in the "
+                                 "CLI's log, expected 1 (a failed fold is "
+                                 "a warning there: "
+                                 + str([r for r in recs
+                                        if r["type"] == "warning"]) + ")")
+        p = profs[0]
+        gap = abs(p["t_attributed"] + p["t_residual"] - p["t_window"])
+        if not p["t_attributed"] > 0 or gap > OBS_WINDOW_ATOL_S:
+            raise AssertionError(f"obs: profile t_attributed "
+                                 f"{p['t_attributed']} + t_residual "
+                                 f"{p['t_residual']} vs t_window "
+                                 f"{p['t_window']}")
+        d_pad = flat_dim(get_config(MAIN["arch"]), 1, MAIN["block_size"])
+        comp = get_compressor("onebit", block_size=MAIN["block_size"])
+        pplan = lower_to_pipelined(
+            flat_schedule(comp, d_pad, 1, ()), comp,
+            Bucketer.for_exchange(d_pad, 1, MAIN["block_size"],
+                                  PIPE_BUCKETS))
+        want_cells = {cell_key(parse_scope(n))
+                      for n in scoped_op_names(pplan)}
+        got_cells = {(c["plan"], c["bucket"], c["stage"], c["kind"],
+                      c["tier"]) for c in p["cells"]}
+        if not want_cells <= got_cells or not p.get("ready_order"):
+            raise AssertionError(f"obs: profile cells {sorted(got_cells)} "
+                                 f"miss {sorted(want_cells - got_cells)} "
+                                 f"(ready_order {p.get('ready_order')})")
+        mems = [r for r in recs if r["type"] == "memory"]
+        att_b = {m["program"]: _check_attribution("14b", m)
+                 for m in mems if m["kind"] == "compiled"}
+        if sorted(att_b) != ["compressed", "warmup"]:
+            raise AssertionError(f"obs: 14b measured memory of {att_b}")
+        ledger = load_ledger(os.path.join(prof, "BENCH_obs_smoke.json"))
+        frac = p["t_attributed"] / p["t_window"]
+        log(f"[obs] 14b: exit 0 in {cli_s:.1f} s; s_per_step "
+            f"{p['s_per_step']:.6f}, attributed_fraction {frac:.6f}, "
+            f"comm_fraction {p['comm_fraction']:.6f}, {p['n_cells']} "
+            f"cells ({len(want_cells)} of the pipelined exchange), "
+            f"{p['n_unattributed']} device events unattributed; ledger "
+            f"{len(ledger['records'])} record(s)")
+        out["b"] = {"cli_s": cli_s, "profile": {
+            k: p[k] for k in ("n_steps", "t_window", "t_attributed",
+                              "t_residual", "s_per_step", "comm_fraction",
+                              "overlap_efficiency", "n_cells",
+                              "n_unattributed", "ready_order", "cells",
+                              "streams")},
+            "attributed_fraction": frac, "measured": att_b,
+            "ledger_metrics": ledger["records"][0]["metrics"]}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # --- the open memory reading: phase 6b's zero1 run, accumulation 2 ---
+    cfg = get_config(FAMILY["arch"])
+    opt = get_optimizer("onebit_adam", compressor="onebit",
+                        compressor_kwargs={"block_size":
+                                           FAMILY["block_size"]})
+    plan = flat_schedule(opt.compressor,
+                         flat_dim(cfg, 1, FAMILY["block_size"]), 1, ())
+    zl = {}
+    for layout in ("replicated", "zero1"):   # its warmup, its compressed
+        led = predict_ledger(cfg, (1,), optim=opt, layout=layout,
+                             block=FAMILY["block_size"],
+                             batch_global=FAMILY["batch"] // 2,
+                             seq=FAMILY["seq"], plan=plan)
+        zl[layout] = {"categories": dict(led.categories),
+                      "total_bytes": led.total_bytes}
+        log(f"[obs] zero1_accum predicted ({layout} steps, microbatch "
+            f"{FAMILY['batch'] // 2}): total {led.total_bytes:.0f} B "
+            f"{dict(led.categories)}")
+    peak6b = family["zero1_accum"]["peak_bytes"]
+    log(f"[obs] zero1_accum: phase 6b measured peak {peak6b} B")
+    out["zero1_accum"] = {"predicted": zl, "measured_peak_bytes": peak6b}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -1824,6 +2076,8 @@ def main() -> int:
     claims = phase_claims()
     torch.cuda.empty_cache()
     plan = phase_plan(stats["losses"], main_state, stats)
+    torch.cuda.empty_cache()
+    obs = phase_obs(stats["losses"], main_state, stats, family)
     del main_state
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -1846,6 +2100,7 @@ def main() -> int:
         e["launches_claims"] = {part: c["launches"][e["name"]]
                                 for part, c in claims.items()}
         e["launches_plan"] = plan["launches"][e["name"]]
+        e["launches_obs"] = obs["a"]["launches"][e["name"]]
     print(json.dumps({"main_path": stats}))
     print(json.dumps({"family_path": {k: v for k, v in family.items()
                                       if k != "pipeline"}}))
@@ -1855,6 +2110,7 @@ def main() -> int:
     print(json.dumps({"oracles": oracles}))
     print(json.dumps({"claims": claims}))
     print(json.dumps({"plan": plan}))
+    print(json.dumps({"obs": obs}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

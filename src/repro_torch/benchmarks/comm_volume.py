@@ -73,17 +73,21 @@ def predicted_plans(d: int = D, block: int = BLOCK,
 class ByteCounter(contextlib.AbstractContextManager):
     """Counts the collective bytes this rank hands ``torch.distributed``
     while installed, by the plans' convention: all_to_all its input,
-    all_gather its gathered output, all_reduce twice its buffer."""
+    all_gather its gathered output, all_reduce twice its buffer.
+    ``calls`` records each call as (function name, bytes), in order."""
 
     def __init__(self):
         self.bytes = 0
+        self.calls = []
         self._saved = {}
 
     def _wrap(self, name: str, nbytes):
         orig = getattr(dist, name)
 
         def counted(*args, **kwargs):
-            self.bytes += nbytes(*args)
+            n = nbytes(*args)
+            self.bytes += n
+            self.calls.append((name, n))
             return orig(*args, **kwargs)
         self._saved[name] = orig
         setattr(dist, name, counted)

@@ -26,12 +26,18 @@ segments and returns the late per-segment drift extrema
 (``quad_seg_drift_late_max`` / ``_min``): every segment's variance must
 have settled, not only the fused sum.
 
-Not ported yet, waiting for the port of ``repro.obs`` (Slice E): the
-event sink and ``--telemetry`` (per-step ``step``, ``transition`` and
-``fidelity`` events), and ``--ledger`` (the BENCH record).
+With ``--telemetry DIR`` both phases emit the :mod:`repro_torch.obs`
+event schema to ``DIR/variance_stability.jsonl``: per-step ``step``
+events carrying ``v_l1`` (and the running variance ratio), a
+``transition`` event where the rule fires, and with ``--segments`` a
+``fidelity`` event a quadratic step (per-segment ``v_l1_seg`` and the
+Delta-lagged ``v_drift``) — the event kind of ``launch.train --audit``,
+so ``repro_torch.obs.report`` renders both alike.  ``--ledger PATH``
+writes the result as a BENCH record (the late per-segment drift extrema
+as ``fidelity_*`` metrics) for ``results/bench_compare.py``.
 
   python -m repro_torch.benchmarks.variance_stability [--segments 8] \\
-      [--device cpu]
+      [--device cpu] [--telemetry DIR] [--ledger PATH]
 """
 from __future__ import annotations
 
@@ -48,12 +54,33 @@ from repro_torch.core import (AdamConfig, CompressionConfig,
 from repro_torch.data import SyntheticStream
 from repro_torch.launch.train import resolve_device
 from repro_torch.models.transformer import init_params
+from repro_torch.obs import NullSink, as_sink
 from repro_torch.train.step import (init_train_state, optimizer_from_config,
                                     train_step)
 
+SOURCE = "benchmarks/variance_stability"
+
+
+def _observe(sink, mon: VarianceMonitor, t: int, v: float,
+             stage: str) -> bool:
+    """Feed the monitor and emit the matching step (and, on firing,
+    transition) events; returns the monitor's frozen verdict."""
+    fired_before = mon.freeze_step is not None
+    frozen = mon.observe(t, v)
+    fields = {"v_l1": v, "stage": stage}
+    if mon.ratio is not None:
+        fields["ratio"] = float(mon.ratio)
+    sink.emit("step", step=t, **fields)
+    if frozen and not fired_before and mon.freeze_step is not None:
+        sink.emit("transition", step=t, kind="stage", frm="warmup",
+                  to="compressed", mode="auto",
+                  **({"ratio": float(mon.ratio)}
+                     if mon.ratio is not None else {}))
+    return frozen
+
 
 def quadratic_phase(steps=400, d=1024, b2=0.97, lr_warmup=30, segments=0,
-                    device="cpu") -> dict:
+                    device="cpu", sink=NullSink()) -> dict:
     rng = np.random.default_rng(0)
     a = torch.from_numpy(rng.uniform(0.5, 5.0, (d,)).astype(np.float32)
                          ).to(device)
@@ -81,9 +108,19 @@ def quadratic_phase(steps=400, d=1024, b2=0.97, lr_warmup=30, segments=0,
         v_hist.append(v)
         if segments > 0:
             va = v_abs.cpu().numpy()
-            v_seg_hist.append([float(va[seg_off[i]:seg_off[i + 1]].sum())
-                               for i in range(segments)])
-        if mon.observe(t, v) and freeze_at is None:
+            v_seg = [float(va[seg_off[i]:seg_off[i + 1]].sum())
+                     for i in range(segments)]
+            v_seg_hist.append(v_seg)
+            fields = {"v_l1_seg": v_seg, "stage": "quadratic",
+                      "source": SOURCE}
+            if t >= delta:
+                prev = v_seg_hist[t - delta]
+                fields["v_drift"] = [s / p if p > 0 else 1.0
+                                     for s, p in zip(v_seg, prev)]
+                if v_hist[t - delta] > 0:
+                    fields["v_ratio"] = v / v_hist[t - delta]
+            sink.emit("fidelity", step=t, n_segments=segments, **fields)
+        if _observe(sink, mon, t, v, "quadratic") and freeze_at is None:
             freeze_at = t
     out = {
         "freeze_step": freeze_at,
@@ -105,7 +142,7 @@ def quadratic_phase(steps=400, d=1024, b2=0.97, lr_warmup=30, segments=0,
 
 def system_phase(steps=80, b2=0.97, lr_warmup=15, lr=1e-3,
                  arch="internlm2-1.8b-smoke", batch=8, seq=64, block=512,
-                 device="cpu") -> dict:
+                 device="cpu", sink=NullSink()) -> dict:
     """Warmup steps of the train step under the auto rule's monitor;
     returns the firing step, the ``||v||_1`` ratio over Delta when it
     fired and at the end, and the first and last losses."""
@@ -123,7 +160,8 @@ def system_phase(steps=80, b2=0.97, lr_warmup=15, lr=1e-3,
         m = train_step(ts, opt, stream.batch_at(t),
                        lr * min((t + 1) / lr_warmup, 1.0), "warmup")
         losses.append(float(m["loss"]))
-        if mon.observe(t, float(m["v_l1"])) and freeze_at is None:
+        if _observe(sink, mon, t, float(m["v_l1"]), "system") \
+                and freeze_at is None:
             freeze_at, ratio_at = t, mon.ratio
     return {"freeze_step": freeze_at, "lr_warmup": lr_warmup,
             "ratio_at_freeze": ratio_at, "ratio_last": mon.ratio,
@@ -141,17 +179,54 @@ def verdicts(quad: dict, sys_: dict):
     return ok_mech, ok_sys
 
 
-def run(verbose: bool = True, segments: int = 0,
-        device: str = "cuda") -> dict:
+def ledger_record(quad: dict, sys_: dict, segments: int) -> dict:
+    """The BENCH record of one result (the reference's metrics)."""
+    from repro_torch.obs.bench import bench_record
+    metrics = {
+        "freeze_step": float(quad["freeze_step"]
+                             if quad["freeze_step"] is not None else -1),
+        "ratio_early": float(quad["ratio_early"]),
+        "ratio_late": float(quad["ratio_late"]),
+        "system_freeze_step": float(sys_["freeze_step"]
+                                    if sys_["freeze_step"] is not None
+                                    else -1),
+    }
+    if segments > 0:
+        # fidelity_* prefix: bench_compare treats drift in these as
+        # structural (seeded deterministic math, not timing noise)
+        metrics["fidelity_n_segments"] = float(segments)
+        metrics["fidelity_seg_drift_late_max"] = \
+            float(quad["seg_drift_late_max"])
+        metrics["fidelity_seg_drift_late_min"] = \
+            float(quad["seg_drift_late_min"])
+    return bench_record("variance_stability", config="quadratic", mesh=[1],
+                        pipeline=1, kernels=False, metrics=metrics)
+
+
+def run(verbose: bool = True, segments: int = 0, device: str = "cuda",
+        telemetry=None, ledger=None) -> dict:
     dev = resolve_device(device)
-    quad = quadratic_phase(segments=segments, device=dev)
-    sys_ = system_phase(device=dev)
+    with as_sink(telemetry, filename="variance_stability.jsonl") as sink:
+        sink.emit("run_meta", optimizer="adam", compressor="none",
+                  topology="flat", n_buckets=1, device=device,
+                  source=SOURCE)
+        quad = quadratic_phase(segments=segments, device=dev, sink=sink)
+        sys_ = system_phase(device=dev, sink=sink)
+    if telemetry and verbose:
+        print(f"telemetry: {sink.n_events} events -> {sink.path}")
     results = {f"quad_{k}": (round(v, 4) if isinstance(v, float) else v)
                for k, v in quad.items()}
     results.update({f"system_{k}": v for k, v in sys_.items()})
     ok_mech, ok_sys = verdicts(quad, sys_)
     results["mechanism_ok"] = ok_mech
     results["system_wiring_ok"] = ok_sys
+    if ledger:
+        from repro_torch.obs.bench import write_ledger
+        write_ledger(ledger, [ledger_record(quad, sys_, segments)],
+                     meta={"source": SOURCE, "segments": segments,
+                           "device": device})
+        if verbose:
+            print(f"ledger -> {ledger}")
     if verbose:
         print("== variance_stability (Fig. 2 / auto-warmup rule) ==")
         for k, v in results.items():
@@ -171,5 +246,13 @@ if __name__ == "__main__":
                     help="also report the late per-segment drift extrema "
                          "over N contiguous splits of v")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="emit the obs event schema to "
+                         "DIR/variance_stability.jsonl (fold with python "
+                         "-m repro_torch.obs.report)")
+    ap.add_argument("--ledger", default=None, metavar="PATH",
+                    help="write a BENCH record of the result "
+                         "(results/bench_compare.py compares two)")
     args = ap.parse_args()
-    run(segments=args.segments, device=args.device)
+    run(segments=args.segments, device=args.device,
+        telemetry=args.telemetry, ledger=args.ledger)

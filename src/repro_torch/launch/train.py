@@ -41,14 +41,41 @@ archive format; ``--resume PATH`` continues from one at its step;
 ``--stage`` forces every step's stage, synchronises every step and
 leaves the warmup switch unfed, as the reference's does.
 
+Observability (``repro_torch.obs``; every piece a no-op when off):
+
+  * ``--telemetry DIR`` writes typed JSONL events to
+    ``DIR/telemetry.jsonl`` (rank r > 0: ``telemetry_rank<r>.jsonl``):
+    ``run_meta``, the ``plan`` events of both exchanges, ``step`` events
+    drained in batches (``--log-every N``: one device-to-host copy a
+    window, and a ``train.window`` span whose ``dur / n`` is the time a
+    step), ``transition`` and ``warning`` events, and the executors'
+    ``obs::`` trace ranges; ``--drift-probe`` times the compressed
+    exchange's collectives on the real process groups first and runs the
+    cost-model drift monitor (one rank has nothing to probe).  Fold a log
+    with ``python -m repro_torch.obs.report DIR/telemetry.jsonl``.
+  * ``--memory on`` (with ``--telemetry``): the predicted per-rank ledger,
+    a live sample every log window, and the caching allocator's peak
+    around the first step of each step program (``warmup``,
+    ``compressed``; on the card), attributed onto the ledger with an
+    explicit residual; ``DIR/memory_ledger.json``.
+  * ``--audit on``: every ``--audit-every``-th compression-stage step
+    first runs the audit probe on the step's batch (its own gradient
+    buffer; ``fidelity`` and ``health`` events).
+  * ``--profile DIR``: a ``torch.profiler`` trace of the last
+    ``--profile-steps`` steps (``DIR/trace_rank<r>.json``), folded onto
+    the plan grid (a ``profile`` event), and ``DIR/BENCH_<--bench>.json``.
+
 ``run(...)`` is the entry point the tests and ``chip_smoke.py`` drive: it
-returns the per-step history (loss, stage, sync, metrics, step time) and
-the kernel launch counts of the run.  It prints the run's plan first.
+returns the per-step history (loss, stage, sync, metrics, and with
+``log_every=1``, its default, each step's time) and the kernel launch
+counts of the run.  It prints the run's plan first.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import math
 import os
 import time
@@ -65,14 +92,18 @@ from repro_torch.data import SyntheticStream
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import build_mesh, mesh_axes, pod_split
 from repro_torch.models.transformer import init_params, leaf_shapes
+from repro_torch.obs import (AUDIT_MODES, MEMORY_MODES, FiniteGuard,
+                             HealthMonitor, MetricBuffer, Tracer, as_sink,
+                             make_audit_probe, set_tracing)
 from repro_torch.optim import WarmupSwitch, get_optimizer
 from repro_torch.plan import autotune, get_cluster
 from repro_torch.plan.schedules import (allreduce_schedule, flat_schedule,
                                         hier_schedule, needs_outer_ef)
 from repro_torch.state import StateLayout, bucket_sizes_for
 from repro_torch.state.checkpoint import load_train_state, save_train_state
-from repro_torch.train.step import (flat_dim, init_train_state,
-                                    overlap_applies, train_step)
+from repro_torch.train.step import (exchange_axes, flat_dim,
+                                    init_train_state, overlap_applies,
+                                    train_step)
 
 CKPT_EVERY = 100
 
@@ -209,6 +240,245 @@ def run_plans(optim, d_pad: int, dp_axes, dp_sizes, topology: str):
     return warm, plan
 
 
+def plan_ready_times(cfg, d: int, n_dp: int, block_size: int,
+                     n_buckets: int, device, batch: int, seq: int):
+    """Per-bucket predicted backward ready times of this run's bucket
+    partition (None unless bucketed) and the backward's seconds: the list
+    the plan telemetry, the memory ledger and the profile fold share."""
+    if n_buckets <= 1:
+        return None, 0.0
+    from repro_torch.pipeline import Bucketer
+    ready_fn, t_bwd = bwd_ready_fn(cfg, batch, seq, device)
+    bk = Bucketer.for_exchange(d, max(n_dp, 1), block_size, n_buckets)
+    return [float(r) for r in ready_fn(tuple(bk.offsets), d)], t_bwd
+
+
+def _cluster(cluster: str, dp_sizes, device_spec):
+    _, _, n_inner, n_outer = pod_split(mesh_axes(dp_sizes), dp_sizes)
+    return get_cluster(cluster, n_inner=n_inner, n_outer=n_outer,
+                       device=device_spec), n_inner * n_outer
+
+
+def emit_plan_telemetry(sink, tracer, optim, cfg, plans, dp_sizes,
+                        n_buckets: int, block_size: int, cluster: str,
+                        device_spec, dev, drift_probe: bool = False,
+                        telemetry_dir: Optional[str] = None,
+                        overlap_bwd: bool = False, batch: int = 8,
+                        seq: int = 128) -> None:
+    """The run's ``plan`` events (per-tier bytes and predicted α-β times
+    of the (warmup, compressed) ``plans``; under ``overlap_bwd`` the
+    per-bucket backward ready times too) and, with ``drift_probe``, each
+    compressed-exchange collective timed on the process groups of its
+    axes and the drift monitor over the samples (a recalibration JSON in
+    the telemetry dir when drift exceeds the threshold).  Every rank
+    calls it: the probe's collectives are real."""
+    from repro_torch.obs.drift import DriftMonitor, probe_plan
+    from repro_torch.plan import cross_pod_bytes, plan_time
+    spec, n_dp = _cluster(cluster, dp_sizes, device_spec)
+    warm, comp_plan = plans
+    for stage, p, nb in (("warmup", warm, 1),
+                         ("compressed", comp_plan, n_buckets)):
+        extra = {}
+        if overlap_bwd and stage == "compressed":
+            ready, t_bwd = plan_ready_times(cfg, p.d, n_dp, block_size, nb,
+                                            spec.device, batch, seq)
+            if ready is not None:
+                extra = {"overlap_bwd": True, "t_bwd": float(t_bwd),
+                         "ready_times": ready}
+        sink.emit("plan", name=p.name, stage=stage, d=p.d,
+                  intra_hlo_bytes=float(p.hlo_bytes("intra")),
+                  cross_hlo_bytes=float(p.hlo_bytes("cross")),
+                  n_buckets=nb, wire_send_bytes=float(p.wire_send_bytes()),
+                  dci_bytes_per_pod=float(cross_pod_bytes(p, spec)),
+                  t_predicted=float(plan_time(p, spec)), **extra)
+    if not drift_probe:
+        return
+    mon = DriftMonitor(spec)
+    with tracer.span("drift.probe"):
+        samples = probe_plan(comp_plan, dev)
+    if not samples:
+        print("[drift] one rank: the compressed exchange moves no bytes, "
+              "nothing to probe", flush=True)
+        return
+    for smp in samples:
+        mon.observe(smp.op_kind, smp.tier, smp.n, smp.payload_bytes,
+                    smp.seconds)
+        sink.emit("span", name=f"probe::{smp.op_kind}@{smp.tier}",
+                  stream=smp.tier, dur=smp.seconds, op_kind=smp.op_kind,
+                  tier=smp.tier, payload_bytes=smp.payload_bytes)
+    recal_path = (os.path.join(telemetry_dir, os.path.basename(
+        sink.path).replace("telemetry", "recalibration").replace(
+        ".jsonl", ".json")) if telemetry_dir else None)
+    for etype, fields in mon.events(emit_recal_path=recal_path):
+        sink.emit(etype, **fields)
+    for pair in mon.drifting:
+        print(f"[drift] {pair[0]}@{pair[1]} outside the cost model's "
+              f"{mon.threshold:.0%} band"
+              + (f" — recalibration written to {recal_path}"
+                 if recal_path else ""), flush=True)
+
+
+def ready_order_rows(fold_intervals, predicted_intervals, ready):
+    """The measured-vs-predicted ready-order table: one row per bucket
+    with its predicted backward ready time and the first collective start
+    on each side."""
+    def first_starts(intervals):
+        first = {}
+        for iv in intervals:
+            b = iv.get("bucket")
+            if b is None or iv.get("phase") == "bwd":
+                continue
+            t = float(iv["t_start"])
+            if b not in first or t < first[b]:
+                first[b] = t
+        return first
+    meas = first_starts(fold_intervals)
+    pred = first_starts(predicted_intervals)
+    return [{"bucket": int(b),
+             "ready_predicted": (float(ready[b])
+                                 if ready and b < len(ready) else 0.0),
+             "first_start_predicted": pred.get(b, 0.0),
+             "first_start_measured": meas.get(b, 0.0)}
+            for b in sorted(set(meas) | set(pred))]
+
+
+def fold_profile_window(trace_path: str, n_steps: int, optim, cfg, plans,
+                        dp_sizes, n_buckets: int, block_size: int,
+                        cluster: str, device_spec, device: str,
+                        stage: str = "compressed",
+                        overlap_bwd: bool = False, batch: int = 8,
+                        seq: int = 128) -> dict:
+    """Fold the captured trace onto the plan grid and build the
+    ``profile`` event's fields (:func:`repro_torch.obs.profile.attribution`):
+    the measured cells, the overlap audit against the predicted
+    ``pipeline_breakdown`` of this run's lowered exchange (the four-stream
+    schedule under ``overlap_bwd``), bytes a step from the executed
+    plan, and under overlap the per-bucket ``ready_order`` table."""
+    from repro_torch.obs import profile as prof
+    from repro_torch.pipeline import Bucketer, lower_to_pipelined
+    from repro_torch.plan import pipeline_breakdown
+    spec, n_dp = _cluster(cluster, dp_sizes, device_spec)
+    warm, comp_plan = plans
+    plan = comp_plan if stage == "compressed" else warm
+    comp = optim.compressor if stage == "compressed" else None
+    nb = n_buckets if stage == "compressed" else 1
+    bucketer = Bucketer.for_exchange(plan.d, n_dp, block_size, nb)
+    ready = None
+    if overlap_bwd and stage == "compressed":
+        ready, _ = plan_ready_times(cfg, plan.d, n_dp, block_size,
+                                    bucketer.n_buckets, spec.device, batch,
+                                    seq)
+    predicted = pipeline_breakdown(
+        lower_to_pipelined(plan, comp, bucketer, use_kernel=(
+            spec.device.runs_kernels and comp is not None
+            and comp.has_kernel)),
+        spec, ready=ready)
+    fold = prof.fold_profile(trace_path, device=device)
+    fields = prof.attribution(fold, n_steps=n_steps, predicted=predicted,
+                              bytes_per_step=float(plan.hlo_bytes()),
+                              source="launch.train")
+    if ready is not None:
+        fields["ready_order"] = ready_order_rows(
+            fold["intervals"], predicted["intervals"], ready)
+    return fields
+
+
+def build_memory_ledger(optim, cfg, comp_plan, dp_sizes, topology: str,
+                        n_buckets: int, block_size: int, cluster: str,
+                        device_spec, layout: str, batch: int, seq: int,
+                        overlap_bwd: bool = False):
+    """The predicted per-rank :class:`~repro_torch.obs.mem.MemoryLedger`
+    of this run, priced against the device spec's capacity; under
+    ``overlap_bwd`` the wire watermark is taken over the four-stream
+    schedule."""
+    from repro_torch.obs.mem import capacity_of, predict_ledger
+    spec, n_dp = _cluster(cluster, dp_sizes, device_spec)
+    ready = None
+    if overlap_bwd:
+        ready, _ = plan_ready_times(cfg, comp_plan.d, n_dp, block_size,
+                                    n_buckets, spec.device, batch, seq)
+    return predict_ledger(
+        cfg, dp_sizes, optim=optim, layout=layout, topology=topology,
+        block=block_size, n_buckets=n_buckets, batch_global=batch,
+        seq=seq, plan=comp_plan, spec=spec,
+        capacity_bytes=capacity_of(spec.device), ready=ready)
+
+
+def emit_memory_attribution(programs: dict, sink, ledger,
+                            telemetry_dir: Optional[str] = None):
+    """The measured side of the ledger: one ``memory`` event
+    (``kind="compiled"``) per measured step program — its output and
+    temporary bytes attributed onto the predicted categories with an
+    explicit residual — and ``memory_ledger.json`` in the telemetry dir.
+    Returns the largest program's
+    :class:`~repro_torch.obs.mem.CompiledMemory` (None when nothing was
+    measured: the CPU has no allocator statistics)."""
+    from repro_torch.obs.mem import attribution_event_fields
+    biggest, dump = None, []
+    for cm in programs.values():
+        fields = attribution_event_fields(ledger, cm)
+        sink.emit("memory", **fields)
+        dump.append(fields)
+        if biggest is None or \
+                cm.per_device_bytes > biggest.per_device_bytes:
+            biggest = cm
+    if telemetry_dir:
+        name = os.path.basename(sink.path).replace(
+            "telemetry", "memory_ledger").replace(".jsonl", ".json")
+        with open(os.path.join(telemetry_dir, name), "w") as f:
+            json.dump({"predicted": ledger.summary(), "compiled": dump}, f,
+                      indent=2)
+    return biggest
+
+
+def emit_profile_ledger(trace_path: str, profile_dir: str, sink, optim,
+                        cfg, plans, dp_sizes, n_buckets: int,
+                        block_size: int, cluster: str, device_spec,
+                        device: str, n_steps: int, stage: str,
+                        bench: Optional[str], arch: str, rank: int = 0,
+                        extra_metrics: Optional[dict] = None,
+                        overlap_bwd: bool = False, batch: int = 8,
+                        seq: int = 128) -> dict:
+    """The fold (:func:`fold_profile_window`), the ``profile`` event and,
+    on rank 0, the ``BENCH_<name>.json`` ledger record."""
+    from repro_torch.obs.bench import bench_record, write_ledger
+    fields = fold_profile_window(trace_path, n_steps, optim, cfg, plans,
+                                 dp_sizes, n_buckets, block_size, cluster,
+                                 device_spec, device, stage=stage,
+                                 overlap_bwd=overlap_bwd, batch=batch,
+                                 seq=seq)
+    sink.emit("profile", **fields)
+    metrics = {k: float(fields[k]) for k in
+               ("s_per_step", "comm_fraction", "overlap_efficiency",
+                "exposed_comm_s", "roofline_fraction", "t_window",
+                "t_attributed", "t_residual", "bytes_per_step")
+               if k in fields}
+    metrics["n_cells"] = int(fields["n_cells"])
+    if fields.get("t_window"):
+        metrics["attributed_fraction"] = (fields["t_attributed"]
+                                          / fields["t_window"])
+    if extra_metrics:
+        metrics.update({k: float(v) for k, v in extra_metrics.items()})
+    name = bench or "train"
+    ledger_path = os.path.join(profile_dir, f"BENCH_{name}.json")
+    if rank == 0:
+        rec = bench_record(name, config=arch, mesh=[int(s) for s in
+                                                    dp_sizes],
+                           pipeline=int(n_buckets),
+                           kernels=device == "cuda", metrics=metrics)
+        write_ledger(ledger_path, [rec],
+                     meta={"source": "repro_torch.launch.train",
+                           "cluster": cluster, "device": device,
+                           "arch": arch, "stage": stage})
+    print(f"profile: {fields['n_cells']} grid cells, "
+          f"{fields['t_attributed']:.3f}s attributed + "
+          f"{fields['t_residual']:.3f}s residual of "
+          f"{fields['t_window']:.3f}s window ({n_steps} steps)"
+          + (f"; ledger -> {ledger_path}" if rank == 0 else ""),
+          flush=True)
+    return fields
+
+
 def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         steps: int = 100, warmup_steps: Optional[int] = None,
         batch: int = 8, seq: int = 128, block_size: int = 4096,
@@ -219,7 +489,11 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         stage_override: Optional[str] = None, mesh=None,
         topology: Optional[str] = None, pipeline=None,
         overlap_bwd: str = "off", cluster: str = "ethernet-10g",
-        device_spec=None) -> dict:
+        device_spec=None, telemetry: Optional[str] = None,
+        log_every: int = 1, log_file: Optional[str] = None,
+        profile: Optional[str] = None, profile_steps: int = 4,
+        memory: str = "off", audit: str = "off", audit_every: int = 10,
+        drift_probe: bool = False, bench: Optional[str] = None) -> dict:
     """Train until step ``steps``; returns ``{"history", "launches", "d",
     "d_pad", "state", "optimizer", "layout", "start_step",
     "checkpoint_s", "topology", "n_buckets", "overlap_bwd", "plan",
@@ -240,8 +514,28 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     ``measured:<path>``; default by ``device``).  ``resume``
     starts at the checkpoint's step; the compression-stage step count
     that drives ``sync_due`` resumes with it (manual T_w; the auto rule's
-    monitor is not checkpointed, as in the reference)."""
+    monitor is not checkpointed, as in the reference).
+
+    Observability (see the module docstring): ``telemetry`` (a directory),
+    ``log_every`` (steps a metric window: its records are fetched in one
+    copy; with 1, the default, each record carries its step's ``ms``,
+    with more none does and the window's ``train.window`` span times the
+    steps), ``log_file`` (the history as JSON), ``profile`` (a directory)
+    and ``profile_steps``, ``memory`` and ``audit`` (``"off"`` /
+    ``"on"``), ``audit_every``, ``drift_probe`` and ``bench`` (the
+    ledger's name).  The result gains ``"telemetry"`` (the log's path or
+    None) and ``"profile"`` (the ``profile`` event's fields or None)."""
+    if audit not in AUDIT_MODES:
+        raise ValueError(f"audit must be one of {AUDIT_MODES}, got "
+                         f"{audit!r}")
+    if memory not in MEMORY_MODES:
+        raise ValueError(f"memory must be one of {MEMORY_MODES}, got "
+                         f"{memory!r}")
+    if log_every < 1:
+        raise ValueError(f"log_every must be >= 1, got {log_every}")
     dev = resolve_device(device)
+    device_spec = device_spec or ("cpu-host" if device == "cpu"
+                                  else "h100-sxm")
     cfg = get_config(arch)
     spec = get_optim_recipe(recipe)
     if optimizer:
@@ -258,9 +552,8 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         cluster=cluster, cfg=cfg, dp_sizes=dpm.sizes,
         compressor=spec.compressor, block_size=block_size,
         compressor_kwargs=spec.compressor_kwargs,
-        device_spec=device_spec or ("cpu-host" if device == "cpu"
-                                    else "h100-sxm"),
-        batch=batch, seq=seq, verbose=verbose and rank == 0)
+        device_spec=device_spec, batch=batch, seq=seq,
+        verbose=verbose and rank == 0)
     dp_axes, pod_axes, n_inner, n_outer = pod_split(dpm.axes, dpm.sizes) \
         if n_dp > 1 else ((), (), 1, 1)
     if topology == "hier" and n_outer == 1:
@@ -335,49 +628,292 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     comp_step = sum(switch.compressed(s) for s in range(start_step)) \
         if manual else 0
 
-    build.reset_launch_counts()
+    # --- telemetry (repro_torch.obs; every piece a no-op when off) -------
+    sink = as_sink(telemetry, filename="telemetry.jsonl" if rank == 0
+                   else f"telemetry_rank{rank}.jsonl")
+    tracer = Tracer(sink)
+    # --profile needs the obs:: ranges even when --telemetry is off
+    set_tracing(sink.enabled or profile is not None)
+    plans = (warm_plan, comp_plan)
+    overlap_on = overlap and n_buckets > 1
+    if sink.enabled:
+        sink.emit("run_meta", optimizer=spec.optimizer,
+                  compressor=spec.compressor, topology=topology,
+                  n_buckets=n_buckets, arch=arch, layout=layout,
+                  use_kernel=dev.type == "cuda", overlap_bwd=overlap_on,
+                  mesh=list(dpm.sizes), steps=steps, block_size=block_size,
+                  cluster=cluster, device=device, seed=seed, recipe=recipe,
+                  audit=audit, audit_every=int(audit_every), rank=rank,
+                  source="repro_torch.launch.train")
+        emit_plan_telemetry(sink, tracer, optim, cfg, plans, dpm.sizes,
+                            n_buckets, block_size, cluster, device_spec,
+                            dev, drift_probe=drift_probe,
+                            telemetry_dir=telemetry, overlap_bwd=overlap_on,
+                            batch=batch, seq=seq)
+    memory_on = memory == "on" and sink.enabled
+    mem_ledger = mem_sampler = None
+    mem_programs = {}        # step program -> CompiledMemory
+    if memory_on:
+        from repro_torch.obs.mem import LiveSampler
+        mem_ledger = build_memory_ledger(
+            optim, cfg, comp_plan, dpm.sizes, topology, n_buckets,
+            block_size, cluster, device_spec, layout, batch, seq,
+            overlap_bwd=overlap_on)
+        sink.emit("memory", **mem_ledger.event_fields())
+        mem_sampler = LiveSampler(dev)
+
+    def on_warning(wstep: int, detail: str) -> None:
+        print(f"[warn] step {wstep}: {detail}", flush=True)
+        sink.emit("warning", what="non-finite v_l1", step=wstep,
+                  detail=detail)
+
+    def on_bad_stat(wstep: int, key: str, value: float) -> None:
+        print(f"[warn] step {wstep}: non-finite {key} ({value}) dropped "
+              f"from the step event", flush=True)
+        sink.emit("warning", what=f"non-finite {key}", step=wstep,
+                  detail=f"{key}={value} rejected by FiniteGuard")
+
+    # --- the per-segment fidelity audit (repro_torch.obs.audit) ----------
+    audit_on = audit == "on"
+    guard = FiniteGuard()
+    health = HealthMonitor()
+    abuf = MetricBuffer() if audit_on else None
+    audit_probe = shadow_v = None     # built at the first audited step
+    audit_idx = 0                     # compression-stage steps seen
+
+    def emit_audit(s: int, fid: dict) -> None:
+        def finite(xs):
+            return [x for x in xs if math.isfinite(x)] \
+                if isinstance(xs, list) else []
+        drift, cos, sign = (finite(fid.get(k)) for k in
+                            ("v_drift", "cos_sim", "sign_agree"))
+        extra = {}
+        if drift:
+            extra["v_drift_max"] = max(drift)
+            extra["v_drift_min"] = min(drift)
+        if cos:
+            extra["cos_sim_min"] = min(cos)
+        if sign:
+            extra["sign_agree_min"] = min(sign)
+        n_seg = fid.get("cos_sim")
+        n_seg = len(n_seg) if isinstance(n_seg, list) else 1
+        sink.emit("fidelity", step=s, n_segments=n_seg, stage="compressed",
+                  source="repro_torch.launch.train", **fid, **extra)
+        hfields, warns = health.observe(s, fid)
+        sink.emit("health", **hfields)
+        for w in warns:
+            print(f"[health] step {s}: {w['what']} — {w['detail']}",
+                  flush=True)
+            sink.emit("warning", **w)
+
+    mbuf = MetricBuffer()
+    pending = {}      # step -> the record's fields known at launch
     history = []
-    for step in range(start_step, steps):
-        if stage_override:
-            stage, sync = stage_override, True
-        else:
-            compressed = switch.compressed(step)
-            stage = "compressed" if compressed else "warmup"
-            sync = optim.sync_due(comp_step) if compressed else True
-            comp_step += compressed
-        batch_t = stream.batch_at(step)
-        over = overlap_applies(stage, sync, n_buckets, overlap)
-        t0 = time.perf_counter()
-        metrics = train_step(ts, optim, batch_t,
-                             lr_schedule(step, lr, lr_warmup), stage,
-                             dp_axes, sync=sync, pod_axes=pod_axes,
-                             topology=topology,
-                             n_buckets=n_buckets, overlap_bwd=overlap)
-        keys = sorted(metrics)
-        vals = torch.stack([metrics[k].to(torch.float32) for k in keys])
-        host = dict(zip(keys, vals.tolist()))   # waits for the step
-        ms = (time.perf_counter() - t0) * 1e3
-        if not stage_override:
-            switch.observe(step, host)
-        rec = {"step": step, "stage": stage, "sync": sync, "overlap": over,
-               "stage0_in_bwd": ts.stage0_in_bwd, "ms": ms, **host}
-        history.append(rec)
+
+    def drain() -> None:
+        """Every parked step's metrics in one copy, folded into the
+        history and the step events in step order; then the audited
+        steps' stats into fidelity and health events."""
+        for s, m in mbuf.drain():
+            rec = dict(pending.pop(s), **m)
+            history.append(rec)
+            ev = guard.filter(s, rec, on_reject=on_bad_stat)
+            sink.emit("step", optimizer=optim.name, **ev)
+            health.observe_loss(s, m.get("loss"))
+        if abuf is not None:
+            for s, fid in abuf.drain():
+                emit_audit(s, fid)
+
+    was_compressed = switch.compressed(start_step - 1) if start_step else \
+        False
+    prev_sync = True
+    prof_start = max(start_step, steps - max(profile_steps, 1)) \
+        if profile else None
+    prof = prof_span = None
+    trace_path = None
+    profile_fields = None
+    win_t0, win_step0 = time.time(), start_step
+    def log_window(step: int, stage: str, sync: bool, over: bool,
+                   t0: float) -> None:
+        """A log boundary: the window's metrics in one copy, the
+        ``train.window`` span, the printed line, the step events, and a
+        live memory sample."""
+        nonlocal win_t0, win_step0
+        host = mbuf.host(step)                 # waits for the step
+        if log_every == 1:
+            pending[step]["ms"] = (time.perf_counter() - t0) * 1e3
+        now = time.time()
+        sink.emit("span", name="train.window", stream="host",
+                  t_start=win_t0, dur=now - win_t0,
+                  n=step - win_step0 + 1, step=step)
         if verbose and rank == 0:
-            print(f"step {step:5d} [{stage:10s}{'' if sync else ' local'}"
+            tail = (f"{pending[step]['ms']:.1f} ms" if log_every == 1
+                    else f"window {now - win_t0:.2f} s, "
+                    f"{step - win_step0 + 1} steps")
+            print(f"step {step:5d} [{stage:10s}"
+                  f"{'' if sync else ' local'}"
                   f"{' overlap' if over else ''}] "
-                  f"loss {rec['loss']:.4f} acc {rec['acc']:.3f} "
-                  f"v_l1 {rec['v_l1']:.3e} ({ms:.1f} ms)", flush=True)
-        if ckpt and (step + 1) % CKPT_EVERY == 0 and step + 1 < steps:
-            save(step + 1)
-    if ckpt:
-        save(steps)
+                  f"loss {host['loss']:.4f} acc {host['acc']:.3f} "
+                  f"v_l1 {host['v_l1']:.3e} ({tail})", flush=True)
+        win_t0, win_step0 = now, step + 1
+        drain()
+        if mem_sampler is not None:
+            mfields = mem_sampler.sample(step)
+            if mfields:
+                sink.emit("memory", **mfields)
+                hfields, warns = health.observe_memory(
+                    step, mfields["bytes_in_use"],
+                    mfields.get("peak_bytes_in_use"),
+                    capacity_bytes=mem_ledger.capacity_bytes)
+                sink.emit("health", **hfields)
+                for w in warns:
+                    print(f"[health] step {step}: {w['what']} — "
+                          f"{w['detail']}", flush=True)
+                    sink.emit("warning", **w)
+
+    build.reset_launch_counts()
+    try:
+        for step in range(start_step, steps):
+            if step == prof_start:
+                # the traced window holds exactly the profiled steps: wait
+                # for the work in flight, then open the profiler and the
+                # host range the fold takes as its wall clock
+                from torch.profiler import ProfilerActivity
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                os.makedirs(profile, exist_ok=True)
+                acts = [ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    acts.append(ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+                prof_span = tracer.span("profile.window",
+                                        n=steps - prof_start, step=step)
+                prof_span.__enter__()
+            if stage_override:
+                stage, sync = stage_override, True
+            else:
+                compressed = switch.compressed(step)
+                if compressed and not was_compressed:
+                    ratio = switch.ratio if switch.mode == "auto" else None
+                    sink.emit("transition", step=step, kind="stage",
+                              frm="warmup", to="compressed",
+                              mode=switch.mode,
+                              **({"ratio": float(ratio)}
+                                 if ratio is not None else {}))
+                    was_compressed = True
+                stage = "compressed" if compressed else "warmup"
+                sync = optim.sync_due(comp_step) if compressed else True
+                comp_step += compressed
+            if sync != prev_sync:
+                sink.emit("transition", step=step, kind="sync",
+                          frm="sync" if prev_sync else "local",
+                          to="sync" if sync else "local")
+                prev_sync = sync
+            batch_t = stream.batch_at(step)
+            over = overlap_applies(stage, sync, n_buckets, overlap)
+            if audit_on and stage == "compressed":
+                if audit_idx % max(audit_every, 1) == 0:
+                    if audit_probe is None:
+                        audit_probe = make_audit_probe(
+                            ts, optim, *exchange_axes(topology, dp_axes,
+                                                      pod_axes))
+                        shadow_v = ts.opt.v.clone()   # seed the shadow EMA
+                    # before the step: the (params, state, batch) it takes
+                    shadow_v, astats = audit_probe(batch_t, shadow_v)
+                    abuf.push(step, astats)
+                audit_idx += 1
+            program = stage if sync else f"{stage}_local"
+            if memory_on and program not in mem_programs:
+                from repro_torch.obs.mem import StepMemory
+                reader = StepMemory(program, dev)
+            else:
+                reader = contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with reader:
+                metrics = train_step(ts, optim, batch_t,
+                                     lr_schedule(step, lr, lr_warmup),
+                                     stage, dp_axes, sync=sync,
+                                     pod_axes=pod_axes, topology=topology,
+                                     n_buckets=n_buckets,
+                                     overlap_bwd=overlap)
+            if getattr(reader, "memory", None) is not None:
+                mem_programs[program] = reader.memory
+            mbuf.push(step, {k: metrics[k] for k in sorted(metrics)})
+            pending[step] = {"step": step, "stage": stage, "sync": sync,
+                             "overlap": over,
+                             "stage0_in_bwd": ts.stage0_in_bwd}
+            boundary = step % log_every == 0 or step == steps - 1
+            if switch.mode == "auto" and not stage_override:
+                # the variance-ratio rule needs v_l1 every step: one
+                # batched copy of the step's metrics
+                switch.observe(step, mbuf.host(step), on_warning=on_warning)
+            elif not stage_override:
+                switch.observe(step, {})
+            if boundary:
+                log_window(step, stage, sync, over, t0)
+            if ckpt and (step + 1) % CKPT_EVERY == 0 and step + 1 < steps:
+                with tracer.span("checkpoint.save", step=step):
+                    save(step + 1)
+        drain()
+        if prof is not None:
+            # the last step's metrics were fetched (a host sync): the
+            # window's wall clock is honest
+            prof_span.__exit__(None, None, None)
+            prof_span = None
+            prof.stop()
+            trace_path = os.path.join(profile, f"trace_rank{rank}.json")
+            prof.export_chrome_trace(trace_path)
+            prof = None
+        mem_extra = None
+        if memory_on:
+            from repro_torch.obs.mem import mem_metrics
+            biggest = emit_memory_attribution(mem_programs, sink,
+                                              mem_ledger, telemetry)
+            mem_extra = mem_metrics(mem_ledger, compiled=biggest,
+                                    live_peak=mem_sampler.peak_bytes)
+        if trace_path is not None:
+            try:
+                profile_fields = emit_profile_ledger(
+                    trace_path, profile, sink, optim, cfg, plans,
+                    dpm.sizes, n_buckets, block_size, cluster, device_spec,
+                    dev.type, n_steps=steps - prof_start, stage=stage,
+                    bench=bench, arch=arch, rank=rank,
+                    extra_metrics=mem_extra, overlap_bwd=overlap_on,
+                    batch=batch, seq=seq)
+            except ValueError as e:   # a failed fold must not lose the run
+                sink.emit("warning", what="profile.fold",
+                          detail=str(e)[:400])
+                print(f"[warn] profile fold failed: {e}", flush=True)
+        if ckpt:
+            with tracer.span("checkpoint.save", step=steps):
+                save(steps)
+    finally:
+        if prof_span is not None:      # abnormal exit mid-window
+            prof_span.__exit__(None, None, None)
+        if prof is not None:
+            prof.stop()
+        set_tracing(False)
+        sink.close()
+    if sink.enabled and verbose:
+        print(f"telemetry: {sink.n_events} events -> {sink.path}",
+              flush=True)
+    if audit_on and health.n_checked and verbose:
+        print(f"audit: {health.n_checked} health check(s), "
+              f"{health.n_failed} failed"
+              + (f"; {guard.n_rejected} non-finite stat(s) dropped"
+                 if guard.n_rejected else ""), flush=True)
+    if log_file:
+        with open(log_file, "w") as f:
+            json.dump(history, f)
     return {"history": history, "launches": build.launch_counts(),
             "d": ts.d, "d_pad": d_pad, "state": ts, "optimizer": optim,
             "layout": layout, "start_step": start_step,
             "checkpoint_s": io_s, "topology": topology,
             "n_buckets": n_buckets, "overlap_bwd": overlap,
             "plan": plan_name,
-            "schedule": tuned.best if tuned else None}
+            "schedule": tuned.best if tuned else None,
+            "telemetry": sink.path, "profile": profile_fields}
 
 
 def main(argv=None):
@@ -434,6 +970,45 @@ def main(argv=None):
                          "(repro_torch.perf.list_devices()) or "
                          "measured:<kernel_sweep.json>; default h100-sxm "
                          "on cuda, cpu-host on cpu")
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="write structured run telemetry to "
+                         "DIR/telemetry.jsonl (typed step/transition/plan/"
+                         "span events, the executors' obs:: trace ranges); "
+                         "summarize with python -m repro_torch.obs.report")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print and drain the buffered metrics every N "
+                         "steps (one device-to-host copy a window)")
+    ap.add_argument("--log-file", default=None,
+                    help="write the per-step history here as JSON")
+    ap.add_argument("--audit", default="off", choices=["off", "on"],
+                    help="the per-segment compression-fidelity and "
+                         "frozen-variance audit: a probe on its own "
+                         "gradient buffer every --audit-every compression-"
+                         "stage steps emits fidelity and health events; "
+                         "training is bitwise unchanged")
+    ap.add_argument("--audit-every", type=int, default=10,
+                    help="audit every N-th compression-stage step")
+    ap.add_argument("--memory", default="off", choices=["off", "on"],
+                    help="with --telemetry: the predicted per-rank memory "
+                         "ledger, a live sample every log window with the "
+                         "mem_headroom/mem_growth verdicts, and the "
+                         "allocator's peak around the first step of each "
+                         "step program attributed onto the ledger")
+    ap.add_argument("--drift-probe", action="store_true",
+                    help="with --telemetry: time each compressed-exchange "
+                         "collective on the real process groups before "
+                         "training and run the cost-model drift monitor "
+                         "(writes recalibration.json on drift)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="trace the last --profile-steps steps with "
+                         "torch.profiler into DIR/trace_rank<r>.json, fold "
+                         "it onto the plan grid (a profile event) and "
+                         "write DIR/BENCH_<--bench>.json")
+    ap.add_argument("--profile-steps", type=int, default=4,
+                    help="steady-state steps the --profile trace covers")
+    ap.add_argument("--bench", default=None, metavar="NAME",
+                    help="ledger name for --profile (BENCH_<NAME>.json; "
+                         "default: train)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -449,7 +1024,12 @@ def main(argv=None):
             ckpt=args.ckpt, resume=args.resume, stage_override=args.stage,
             mesh=args.mesh, topology=args.topology, pipeline=args.pipeline,
             overlap_bwd=args.overlap_bwd, cluster=args.cluster,
-            device_spec=args.device_spec)
+            device_spec=args.device_spec, telemetry=args.telemetry,
+            log_every=args.log_every, log_file=args.log_file,
+            profile=args.profile, profile_steps=args.profile_steps,
+            memory=args.memory, audit=args.audit,
+            audit_every=args.audit_every, drift_probe=args.drift_probe,
+            bench=args.bench)
     finally:
         if world > 1:
             dist.destroy_process_group()

@@ -38,9 +38,11 @@ The port's copy of ``repro/optim/base.py``, with ``pod_axes`` (the
 hierarchical topology), ``n_buckets`` (the pipelined exchange) and
 backward overlap's exchange fed bucket by bucket (``start_exchange`` /
 ``fold_momentum``; the reference's tuple of gradient parts has no other
-user, so ``update`` takes the full vector).  Not ported yet: the audit
-probe; ``use_kernel`` / ``with_kernels`` have no counterpart, since the
-port routes by device (a CUDA tensor takes the kernels).  The port
+user, so ``update`` takes the full vector), and the audit hooks that
+``repro_torch.obs.audit`` reads (:meth:`TwoStageOptimizer.audit_stats`,
+``_audit_extra`` / ``audit_extra_keys`` / ``_audit_v_live``).
+``use_kernel`` / ``with_kernels`` have no counterpart, since the port
+routes by device (a CUDA tensor takes the kernels).  The port
 updates nothing in place: both stages return the new parameter vector
 and a new state tree.
 """
@@ -67,6 +69,14 @@ LAYOUTS = ("replicated", "local", "zero1")
 # grad/momentum L2 norms, and the two EF-residual norms
 STAT_KEYS = ("v_l1", "grad_norm", "momentum_norm", "worker_err_norm",
              "server_err_norm")
+
+# the audit probe's stat set (repro_torch.obs.audit): per-segment vectors
+# of length SegmentInfo.n, then whole-model scalars; optimizers may append
+# per-family extras via ``audit_extra_keys`` / ``_audit_extra``
+AUDIT_SEG_KEYS = ("cos_sim", "sign_agree", "v_drift", "v_l1_seg",
+                  "worker_err_seg", "server_err_seg")
+AUDIT_SCALAR_KEYS = ("v_ratio", "grad_norm", "momentum_norm",
+                     "worker_err_norm", "server_err_norm", "v_live")
 
 
 def _f32(a) -> float:
@@ -153,6 +163,35 @@ def segment_l1(x: torch.Tensor, segs: SegmentInfo,
     """Per-segment L1 mass (the per-layer slice of the paper's fused
     ``||v||_1``), summed over ``axes`` when given."""
     return _segment_sum(torch.abs(x), segs, axes)
+
+
+def segment_cosine(a: torch.Tensor, b: torch.Tensor, segs: SegmentInfo,
+                   axes: Sequence[str] = ()) -> torch.Tensor:
+    """Per-segment cosine similarity ``<a,b> / (||a|| ||b||)``; the three
+    inner products are summed over ``axes`` before the division, so
+    sharded vectors get the global similarity.  Segments where either
+    side is all zero report 1.0 (nothing was lost)."""
+    dots = _segment_sum(a * b, segs, axes)
+    na = _segment_sum(torch.square(a), segs, axes)
+    nb = _segment_sum(torch.square(b), segs, axes)
+    denom = torch.sqrt(na * nb)
+    return torch.where(denom > 0.0, dots / torch.clamp(denom, min=1e-30),
+                       torch.ones_like(denom))
+
+
+def segment_sign_agreement(a: torch.Tensor, b: torch.Tensor,
+                           segs: SegmentInfo, axes: Sequence[str] = ()
+                           ) -> torch.Tensor:
+    """Per-segment fraction of coordinates where ``sign(a) == sign(b)``
+    (what 1-bit compression preserves when EF is healthy); counts are
+    summed over ``axes``.  Empty segments report 1.0."""
+    agree = (torch.sign(a) == torch.sign(b)).to(torch.float32)
+    num = _segment_sum(agree, segs, axes)
+    cnt = torch.tensor([float(s) for s in segs.sizes], device=a.device)
+    if axes:
+        dist.all_reduce(cnt, group=group_of(axes))
+    return torch.where(cnt > 0.0, num / torch.clamp(cnt, min=1.0),
+                       torch.ones_like(cnt))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,6 +312,24 @@ class TwoStageOptimizer:
         """True if ``sync_due`` can ever return False: callers must then
         use the per-dp-rank ("local") state layout."""
         return False
+
+    # --- audit hooks (repro_torch.obs.audit reads these) -------------------
+    def _audit_extra(self, state: StateTree, segs: SegmentInfo) -> dict:
+        """Per-family additions to :meth:`audit_stats` (keys must match
+        :attr:`audit_extra_keys`).  Default: none."""
+        return {}
+
+    @property
+    def audit_extra_keys(self) -> Tuple[str, ...]:
+        """Names of the extra stats :meth:`_audit_extra` returns."""
+        return ()
+
+    def _audit_v_live(self, state: StateTree) -> torch.Tensor:
+        """1.0 while the compression-stage variance is still legitimately
+        updating (0/1 Adam's interval refresh), 0.0 once frozen — the
+        HealthMonitor suppresses the variance-drift verdict while live.
+        Default: frozen (Alg. 1)."""
+        return torch.zeros((), dtype=torch.float32, device=state.m.device)
 
     @property
     def _fused_warmup_ok(self) -> bool:
@@ -453,6 +510,93 @@ class TwoStageOptimizer:
                             worker_err=errs["worker"],
                             server_err=errs["server"])
         return x_full, state._replace(**repl), stats
+
+    # --- audit probe (observation only; repro_torch.obs.audit builds it) ---
+    def audit_stats(self, g_local: torch.Tensor, state: StateTree,
+                    shadow_v: torch.Tensor, *,
+                    dp_axes: Sequence[str] = (),
+                    pod_axes: Sequence[str] = (),
+                    segs: Optional[SegmentInfo] = None,
+                    ) -> Tuple[torch.Tensor, dict]:
+        """Per-segment compression-fidelity and frozen-variance stats of
+        one WOULD-BE sync step — pure observation: the state and the EF
+        residuals are read, never written.  The compressor gets fresh
+        buffers (no ``out=``), never the state's ``worker_err`` or
+        ``server_err`` to write into, so the audit cannot change training.
+
+        Returns ``(new_shadow_v, stats)``:
+
+          * ``new_shadow_v`` — the shadow second-moment EMA advanced one
+            step on the dp-mean gradient: what ``v`` would be were it not
+            frozen (the paper's Sec. 7.1 / Fig. 2 quantity, per segment);
+          * ``stats`` — the :data:`AUDIT_SEG_KEYS` per-segment vectors,
+            the :data:`AUDIT_SCALAR_KEYS` scalars and any
+            ``audit_extra_keys`` of the family.
+
+        Fidelity is measured on what a sync step compresses: the
+        EF-compensated local momentum ``m_local + worker_err`` against
+        its decompressed wire image.  Needs the full ``v`` slot (the
+        replicated and local layouts; zero1 shards it)."""
+        if "v" not in state:
+            raise ValueError("audit_stats needs the full 'v' slot (the "
+                             "replicated or local layout), not zero1's "
+                             "v_shard")
+        all_dp = tuple(pod_axes) + tuple(dp_axes)
+        if segs is None:
+            segs = SegmentInfo((g_local.shape[0],))
+
+        # (a) frozen-variance validity: one shadow-EMA step on the dp-mean
+        # gradient, compared per segment against the frozen v
+        g = comm.allreduce_mean(g_local, all_dp)
+        new_sv = self.b2 * shadow_v + (1.0 - self.b2) * torch.square(g)
+        sv_seg = segment_l1(new_sv, segs)
+        v_seg = segment_l1(state.v, segs)
+        one = torch.ones((), device=v_seg.device)
+        # zero-mass segments (the padding tail, untouched layers) have no
+        # drift to report: ratio pinned to 1.0, not 0/0
+        v_drift = torch.where(v_seg > 0.0,
+                              sv_seg / torch.clamp(v_seg, min=1e-30), one)
+        v_tot, sv_tot = torch.sum(v_seg), torch.sum(sv_seg)
+        v_ratio = torch.where(v_tot > 0.0,
+                              sv_tot / torch.clamp(v_tot, min=1e-30), one)
+
+        # (b) compression fidelity of the would-be momentum exchange
+        m_local = self.b1 * state.m + (1.0 - self.b1) * g_local
+        raw = m_local + state.worker_err
+        payload, _ = self.compressor.ef_compress(m_local, state.worker_err)
+        m_hat = self.compressor.decompress(payload)
+        cos = segment_cosine(raw, m_hat, segs)
+        sign = segment_sign_agreement(raw, m_hat, segs)
+        if all_dp:   # per-rank quantities: report the dp mean
+            cos = comm.allreduce_mean(cos, all_dp)
+            sign = comm.allreduce_mean(sign, all_dp)
+
+        # EF-residual mass per segment: global L2 over every rank's
+        # residual
+        we_seg = segment_norms(state.worker_err, segs, all_dp)
+        # the server residual is one chunk per intra-pod rank at that
+        # rank's element offset (the all_to_all partition)
+        chunk = state.server_err.shape[0]
+        off = comm.axis_index(dp_axes) * chunk if dp_axes else 0
+        se_seg = segment_norms(state.server_err,
+                               segs.window(off, off + chunk), all_dp)
+
+        m_norm = torch.linalg.vector_norm(m_local)
+        stats = {
+            "cos_sim": cos, "sign_agree": sign, "v_drift": v_drift,
+            "v_l1_seg": v_seg, "worker_err_seg": we_seg,
+            "server_err_seg": se_seg,
+            "v_ratio": v_ratio,
+            "grad_norm": torch.linalg.vector_norm(g),
+            "momentum_norm": (comm.allreduce_mean(m_norm.reshape(1),
+                                                  all_dp)[0]
+                              if all_dp else m_norm),
+            "worker_err_norm": torch.sqrt(torch.sum(torch.square(we_seg))),
+            "server_err_norm": torch.sqrt(torch.sum(torch.square(se_seg))),
+            "v_live": self._audit_v_live(state),
+        }
+        stats.update(self._audit_extra(state, segs))
+        return new_sv, stats
 
     @staticmethod
     def _gather_replica(master_shard: torch.Tensor,

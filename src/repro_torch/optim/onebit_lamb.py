@@ -18,9 +18,9 @@ first compression-stage step writes the clipped live ratio into every
 still-zero slot; afterwards the stored value wins, so a checkpoint
 resumes with the exact frozen ratios.
 
-The port's copy of ``repro/optim/onebit_lamb.py`` (the audit hooks are a
-later slice).  Without segment info every hook is the identity, as in
-the reference.
+The port's copy of ``repro/optim/onebit_lamb.py``, audit hook included
+(the frozen ratios as the ``scale_seg`` stat of ``repro_torch.obs.audit``).
+Without segment info every hook is the identity, as in the reference.
 """
 from __future__ import annotations
 
@@ -65,3 +65,14 @@ class OneBitLamb(TwoStageOptimizer):
         if segs is None:
             return None
         return segs.expand(scale)
+
+    # the audit probe also surfaces the frozen layerwise trust ratios: a
+    # ratio pinned at the clip bounds, or a still-zero sentinel deep into
+    # the compression stage, is the per-segment pathology the fidelity
+    # event should show
+    @property
+    def audit_extra_keys(self):
+        return ("scale_seg",)
+
+    def _audit_extra(self, state, segs):
+        return {"scale_seg": state.scale}

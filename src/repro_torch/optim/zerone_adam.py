@@ -17,8 +17,8 @@ Generalises 1-bit Adam along both of its frozen dimensions:
     ``TwoStageOptimizer.update``) and needs the "local" state layout.
 
 With ``var_update_interval = 0`` and ``sync_double_every = 0`` this is
-exactly 1-bit Adam.  The port's copy of ``repro/optim/zerone_adam.py``
-(the audit hook is a later slice).
+exactly 1-bit Adam.  The port's copy of ``repro/optim/zerone_adam.py``,
+audit hook included (``v_live`` of ``repro_torch.obs.audit``).
 """
 from __future__ import annotations
 
@@ -58,6 +58,14 @@ class ZeroneAdam(TwoStageOptimizer):
             (count <= self.var_freeze_step)
         v_new = self.b2 * v + (1.0 - self.b2) * torch.square(g_hat)
         return torch.where(due, v_new, v), torch.where(due, count, v_step)
+
+    def _audit_v_live(self, state):
+        # v keeps refreshing on the interval schedule until
+        # var_freeze_step: shadow-vs-live drift is EXPECTED there, and the
+        # HealthMonitor must not call it a violated assumption
+        if self.var_update_interval <= 0:
+            return super()._audit_v_live(state)
+        return (state.count <= self.var_freeze_step).to(torch.float32)
 
     def sync_due(self, step: int) -> bool:
         if self.sync_double_every <= 0:

@@ -23,6 +23,11 @@ issues before any later stage, then the later stages run their own
 wavefront; the order of the calls then does not depend on how many
 stage 0s backward issued.
 
+With tracing on, each half of grid point (b, s) runs inside a trace
+range named ``obs::<pplan.name>::b<b>.s<s>::<Kind>~<tier>``
+(:func:`scoped_op_names`); the halves are apart in time, each opens its
+own range under the same name, and a profile fold merges them by cell.
+
 Numerics are bitwise the serial executor's: buckets are block-aligned,
 so per-block compression cannot see their boundaries; the chunk means
 reduce the same operands in the same order; every EF slot is consumed
@@ -40,8 +45,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.obs.trace import span_name
 from repro_torch.pipeline.ir import PipelinedPlan
 from repro_torch.plan.executor import Errs, Issued, complete_op, issue_op
+
+
+def scoped_op_names(pplan: PipelinedPlan) -> Tuple[str, ...]:
+    """The range names one ``execute_pipelined`` run opens (tracing on),
+    in wavefront issue order, one per grid point: the expected coverage
+    of a profile fold."""
+    return tuple(span_name(pplan.name, s, pplan.buckets[b].plan.ops[s].kind,
+                           pplan.buckets[b].plan.ops[s].tier, bucket=b)
+                 for b, s in pplan.issue_order())
 
 
 class Wavefront:
@@ -114,7 +129,8 @@ class Wavefront:
         # the new residual goes straight into its slice of the new slot
         err_out = None if op.err_slot is None else \
             self.new_errs[op.err_slot][self._slot_range(b, op.err_slot)]
-        iss = issue_op(op, self.comp, self.vals[b], self.berrs[b], err_out)
+        iss = issue_op(op, self.comp, self.vals[b], self.berrs[b], err_out,
+                       plan_name=self.pplan.name, stage=s, bucket=b)
         self.vals[b] = None
         self.berrs[b] = iss.errs
         self.pending[(b, s)] = iss

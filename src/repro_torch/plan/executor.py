@@ -43,6 +43,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.obs.trace import op_scope, span_name
 from repro_torch.plan.ir import (AllGather, AllReduce, AllToAll,
                                  CollectiveOp, CommPlan)
 
@@ -138,13 +139,33 @@ class Issued:
     sent: Tuple[torch.Tensor, ...] = ()
     works: Tuple[object, ...] = ()
     value: Optional[torch.Tensor] = None
+    # (plan name, stage, bucket) of the op's trace range
+    scope: Tuple[str, int, Optional[int]] = ("plan", 0, None)
+
+
+def scoped_op_names(plan: CommPlan) -> Tuple[str, ...]:
+    """The range names one serial ``execute_plan`` run opens (tracing
+    on), one per op: the expected coverage of a profile fold."""
+    return tuple(span_name(plan.name, s, op.kind, op.tier)
+                 for s, op in enumerate(plan.ops))
 
 
 def issue_op(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
-             err_out: Optional[torch.Tensor] = None) -> Issued:
+             err_out: Optional[torch.Tensor] = None,
+             plan_name: str = "plan", stage: int = 0,
+             bucket: Optional[int] = None) -> Issued:
     """First half of ``op``: its compress point, then its collective
     launched asynchronously (nothing launched with empty ``axes``).
-    ``err_out``, when given, receives the op's new EF residual."""
+    ``err_out``, when given, receives the op's new EF residual.
+    ``plan_name``/``stage``/``bucket`` only name the op's trace range."""
+    with op_scope(plan_name, stage, op, bucket):
+        iss = _issue(op, comp, value, errs, err_out)
+    iss.scope = (plan_name, stage, bucket)
+    return iss
+
+
+def _issue(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
+           err_out: Optional[torch.Tensor]) -> Issued:
     if isinstance(op, AllReduce):
         if not op.axes:
             return Issued(op, comp, errs, value=value)
@@ -176,7 +197,15 @@ def issue_op(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
 def complete_op(iss: Issued, out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Errs]:
     """Second half: wait for the collective, then decompress and combine
-    (into ``out`` when given).  Returns (value, errs)."""
+    (into ``out`` when given), inside a trace range of the same name as
+    the first half's.  Returns (value, errs)."""
+    plan_name, stage, bucket = iss.scope
+    with op_scope(plan_name, stage, iss.op, bucket):
+        return _complete(iss, out)
+
+
+def _complete(iss: Issued, out: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, Errs]:
     for w in iss.works:
         w.wait()
     op, comp = iss.op, iss.comp
@@ -202,10 +231,12 @@ def complete_op(iss: Issued, out: Optional[torch.Tensor] = None
     return _into(out, acc), iss.errs
 
 
-def execute_op(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs
+def execute_op(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
+               plan_name: str = "plan", stage: int = 0
                ) -> Tuple[torch.Tensor, Errs]:
     """Run one op: :func:`issue_op` then :func:`complete_op`."""
-    return complete_op(issue_op(op, comp, value, errs))
+    return complete_op(issue_op(op, comp, value, errs, plan_name=plan_name,
+                                stage=stage))
 
 
 def execute_plan(plan: CommPlan, comp, value: torch.Tensor,
@@ -219,6 +250,6 @@ def execute_plan(plan: CommPlan, comp, value: torch.Tensor,
         raise KeyError(f"plan {plan.name!r} needs EF slots {missing}")
     if tuple(value.shape) != (plan.d,):
         raise ValueError(f"value shape {tuple(value.shape)} != ({plan.d},)")
-    for op in plan.ops:
-        value, errs = execute_op(op, comp, value, errs)
+    for stage, op in enumerate(plan.ops):
+        value, errs = execute_op(op, comp, value, errs, plan.name, stage)
     return value, errs

@@ -304,6 +304,16 @@ def overlap_applies(stage: str, sync: bool, n_buckets: int,
         and n_buckets > 1
 
 
+def exchange_axes(topology: str, dp_axes: Sequence[str] = (),
+                  pod_axes: Sequence[str] = ()):
+    """(within-pod, cross-pod) axes of the compressed exchange: the
+    two-level split under ``hier`` with pod axes, else every dp axis
+    within one "pod" (the flat schedule)."""
+    if topology == "hier" and pod_axes:
+        return tuple(dp_axes), tuple(pod_axes)
+    return tuple(pod_axes) + tuple(dp_axes), ()
+
+
 def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
                batch: Dict[str, torch.Tensor], lr: float, stage: str,
                dp_axes: Sequence[str] = (), sync: bool = True,
@@ -328,10 +338,7 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
         raise ValueError("sync=False (0-bit local steps) requires "
                          "layout='local'")
     all_axes = tuple(pod_axes) + tuple(dp_axes)
-    if topology == "hier" and pod_axes:
-        inner, outer = tuple(dp_axes), tuple(pod_axes)
-    else:
-        inner, outer = all_axes, ()
+    inner, outer = exchange_axes(topology, dp_axes, pod_axes)
     sharded = "master_shard" in ts.opt
     overlap = None
     if overlap_applies(stage, sync, n_buckets, overlap_bwd):

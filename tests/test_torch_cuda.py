@@ -669,3 +669,72 @@ def test_nccl_auto_schedule_bitwise_explicit(card, tmp_path):
           + json.dumps([g["auto__ms"].round(1).tolist() for g in ranks])
           + " explicit "
           + json.dumps([g["explicit__ms"].round(1).tolist() for g in ranks]))
+
+
+def test_nccl_obs_profile_and_drift(card, tmp_path):
+    """The launcher's observability over NCCL on 4 cards: ``torchrun`` of
+    ``repro_torch.launch.train`` at full BERT-Large on a 2 x 2 mesh, hier,
+    2 buckets, backward overlap, with ``--telemetry``, ``--profile`` (the
+    last 2 steps), ``--drift-probe`` and ``--memory on``.  On every rank
+    the log validates, its ``profile`` event has a cell for every
+    (bucket, stage) op of ``pipe(hier/onebit)x2`` with the NCCL kernels as
+    wire time and ``t_attributed + t_residual == t_window`` (to rounding,
+    1e-12 s), and the ``drift`` events, one per (kind, tier) of the
+    probed plan with 3 samples each, validate.  Prints each rank's
+    attributed share, comm fraction and drift ratios."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from repro_torch.configs import get_config
+    from repro_torch.obs.events import validate_records
+    from repro_torch.obs.profile import cell_key, parse_scope
+    from repro_torch.optim import get_compressor
+    from repro_torch.pipeline import Bucketer, lower_to_pipelined
+    from repro_torch.pipeline.executor import scoped_op_names
+    from repro_torch.plan import hier_schedule
+    from repro_torch.train.step import flat_dim
+    _four_cards()
+    tel, prof = str(tmp_path / "tel"), str(tmp_path / "prof")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--arch", "bert-large", "--mesh", "2x2x1", "--topology", "hier",
+         "--pipeline", "2", "--overlap-bwd", "on", "--steps", "6",
+         "--warmup-steps", "3", "--batch", "64", "--seq", "128",
+         "--telemetry", tel, "--profile", prof, "--profile-steps", "2",
+         "--drift-probe", "--memory", "on", "--bench", "nccl4"],
+        env=dict(os.environ, PYTHONPATH=os.path.abspath(src)),
+        capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    d = flat_dim(get_config("bert-large"), 4, 4096)
+    comp = get_compressor("onebit", block_size=4096)
+    pplan = lower_to_pipelined(
+        hier_schedule(comp, d, 2, 2, ("data",), ("pod",), outer_ef=False),
+        comp, Bucketer.for_exchange(d, 4, 4096, 2))
+    want = {cell_key(parse_scope(n)) for n in scoped_op_names(pplan)}
+    for r in range(4):
+        name = "telemetry.jsonl" if r == 0 else f"telemetry_rank{r}.jsonl"
+        with open(os.path.join(tel, name)) as f:
+            recs = [json.loads(ln) for ln in f]
+        validate_records(recs)
+        [p] = [x for x in recs if x["type"] == "profile"]
+        cells = {(c["plan"], c["bucket"], c["stage"], c["kind"],
+                  c["tier"]): c for c in p["cells"]}
+        assert want <= set(cells), (r, sorted(want - set(cells)))
+        assert all(cells[k]["t_wire"] > 0 for k in want), r
+        assert p["t_attributed"] > 0
+        assert abs(p["t_attributed"] + p["t_residual"] - p["t_window"]) \
+            <= 1e-12
+        drift = [x for x in recs if x["type"] == "drift"]
+        assert {(x["op_kind"], x["tier"]) for x in drift} == {
+            ("AllToAll", "intra"), ("AllToAll", "cross"),
+            ("AllGather", "cross"), ("AllGather", "intra")}, r
+        assert all(x["n_samples"] == 3 for x in drift), r
+        print(f"[nccl4] obs rank {r}: attributed "
+              f"{p['t_attributed'] / p['t_window']:.4f} of "
+              f"{p['t_window']:.4f} s, comm_fraction "
+              f"{p['comm_fraction']:.4f}, {p['n_cells']} cells; drift "
+              + ", ".join(f"{x['op_kind']}~{x['tier']} x{x['ratio']:.2f}"
+                          for x in drift))

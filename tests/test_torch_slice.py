@@ -190,7 +190,8 @@ def test_cli_runs_on_cpu():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--arch", ARCH, "--steps", "3", "--warmup-steps", "2", "--batch",
-         "2", "--seq", "16", "--block-size", str(BLOCK)],
+         "2", "--seq", "16", "--block-size", str(BLOCK), "--log-every",
+         "1"],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("step")]
