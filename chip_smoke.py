@@ -154,12 +154,40 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                6b's zero1 run with accumulation 2 (host math only) beside
                the peak phase 6b measured.  Prints the ``{"obs": {...}}``
                line.
+ 15. families — the model families (MoE, the Mamba-1 SSM, the Jamba
+               hybrid, the audio and VLM input stubs).  15a: the reduced()
+               config of each of the eight archs beyond BERT and the dense
+               decoders (and the MoE one under the gather dispatch)
+               through ``run`` on the card and on the CPU from one seed, 3
+               warmup + 2 compressed steps, batch 4 x seq 64 (80 for the
+               VLM: 64 text tokens after the 16-patch prefix), block 512:
+               launch counts 3 / 4 / 4, aux > 0 with experts and 0
+               without, the losses of steps 0-3 (taken before any
+               compressed update) within SMALL_LOSS_RTOL, the first
+               compressed payload's sign bits at most 1e-3 apart (the
+               step's local momentum on each device from the CPU's state
+               after the warmup); step 4's loss reported.  15b: the
+               full-width path, falcon-mamba-7b at its published widths (d
+               4096, d_inner 8192, state 16, conv 4, dt_rank 256, vocab
+               65,024, bf16) cut to 2 layers, through ``run``: 3 warmup + 3
+               compressed 1-bit Adam steps, batch 2 x seq 2048, block 4096,
+               seed 0; losses finite, the stage flips at step 3, v_l1
+               frozen, launch counts 3 / 6 / 6 read around exactly this
+               run; d_pad, the walls, the peak, and one compressed step
+               under torch.profiler.  15c: mixtral-8x22b's MoE layer alone
+               (d 6144, ff 16384, 8 experts, top-2; f32 parameters from seed
+               0, bf16 inputs of batch 2 x seq 4096, capacity 2560):
+               forward + backward under the einsum and the gather dispatch,
+               outputs and input gradients held to each other at one bf16
+               ulp; CUDA-event ms and peak memory of each.  Prints the
+               ``{"families": {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
 phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
 phase 12, the sweep and the auto run in phase 13, the observed run in
-phase 14a) and read just after it.  It prints the ``{"kernels": [...]}``
+phase 14a, each card run of phase 15a and the full-width run of 15b) and
+read just after it.  It prints the ``{"kernels": [...]}``
 line, the card line, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -281,6 +309,47 @@ OBS_CLI_TIMEOUT_S = 600
 # attributed + residual is the window by construction; in floating point
 # the sum may miss it by rounding
 OBS_WINDOW_ATOL_S = 1e-12
+
+# phase 15: the model families.  15a: every new arch's reduced() config,
+# and the MoE one under the gather dispatch, on the card and on the CPU
+FAMILY_ARCHS = ("deepseek-7b-smoke", "falcon-mamba-7b-smoke",
+                "granite-34b-smoke", "internvl2-2b-smoke",
+                "jamba-1.5-large-398b-smoke",
+                "llama4-scout-17b-a16e-smoke", "mixtral-8x22b-smoke",
+                "musicgen-large-smoke", "mixtral-8x22b-smoke-gather")
+FAMILIES_SMALL = dict(recipe="onebit_adam", steps=5, warmup_steps=3,
+                      batch=4, seq=64, block_size=512, lr=2e-3, lr_warmup=2)
+# 64 text tokens after the 16-patch prefix
+FAMILIES_SEQ = {"internvl2-2b-smoke": 80}
+FAMILIES_SMALL_LAUNCHES = dict(NO_FLASH, adam_step=3, ef_compress=4,
+                               decompress=4)
+# the first compressed payload's sign bits that may differ card/cpu from
+# one state (tests/test_torch_slice.py's ceiling against the reference: a
+# bit flips only where the local momentum lies within the rounding
+# difference of zero).  From each side's own warmup the share was 3.7e-3
+# on internvl2-2b-smoke on an H100: Adam's first steps turn the card's
+# rounding of near-zero gradients into coordinates 1e-4 apart (13,369 of
+# them there; the patches' N(0, 1) rows make its gradient 1.2e-4 of its
+# largest entry apart at step 0, 5e-7 elsewhere).  Each flip moves its
+# coordinate by 2 lr scale / sqrt(v), and at these sizes v is tiny on
+# some coordinates, so the loss after the first compressed update can
+# leave SMALL_LOSS_RTOL (6.2e-3 on granite-34b-smoke, a dense arch): it is
+# reported, not held
+FAMILIES_SIGN_FLIP_CEILING = 1e-3
+# 15b: falcon-mamba-7b at its published widths, cut to 2 layers (two of
+# its one-layer periods)
+MAMBA_ARCH = "falcon-mamba-7b-2l"
+MAMBA = dict(arch=MAMBA_ARCH, recipe="onebit_adam", steps=6,
+             warmup_steps=3, batch=2, seq=2048, block_size=4096, seed=0)
+MAMBA_LAUNCHES = dict(NO_FLASH, adam_step=3, ef_compress=6, decompress=6)
+# 15c: mixtral-8x22b's MoE layer alone at full width: f32 parameters from
+# seed 0, bf16 inputs of batch 2 x seq 4096 (t = 8192, capacity 2560)
+MOE_LAYER = dict(batch=2, seq=4096, seed=0)
+MOE_LAYER_REPS = 3
+# both dispatches move each token exactly and sum the experts' outputs
+# in expert order; the output and the input gradient are bf16, so they
+# are held at one bf16 ulp (2^-7 relative)
+MOE_LAYER_TOL = dict(rtol=2 ** -7, atol=1e-6)
 
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
@@ -2034,6 +2103,244 @@ def phase_obs(main_losses, main_state, main_stats, family) -> dict:
     return out
 
 
+def _register_phase15_configs() -> None:
+    """The cut configs of phase 15, registered with the port's own
+    ``register`` (the launcher has no depth flag)."""
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    register(dataclasses.replace(get_config("mixtral-8x22b-smoke"),
+                                 name="mixtral-8x22b-smoke-gather",
+                                 moe_dispatch="gather"))
+    register(dataclasses.replace(get_config("falcon-mamba-7b"),
+                                 name=MAMBA_ARCH, n_layers=2))
+
+
+def _first_payload_flips(arch: str, kw: dict) -> float:
+    """The share of the first compressed step's payload sign bits that
+    differ between the card and the CPU from one state: the CPU's run of
+    the warmup steps, then the compressed step's gradient on each device
+    from those parameters and the local momentum b1 m + (1 - b1) g (worker
+    error 0), whose signs are the payload."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch.train import run
+    from repro_torch.models.transformer import Transformer, loss_fn
+    cfg, w = get_config(arch), kw["warmup_steps"]
+    res = run(device="cpu", **dict(kw, steps=w))
+    ts, b1 = res["state"], res["optimizer"].b1
+    signs = []
+    for dev in ("cuda", "cpu"):
+        x = ts.x.to(dev, copy=True)
+        g = torch.zeros_like(x)
+        model = Transformer(cfg, x)
+        model.bind_grads(g)
+        batch = SyntheticStream(cfg, InputShape(
+            "custom", kw["seq"], kw["batch"], "train"), seed=0,
+            device=dev).batch_at(w)
+        loss_fn(model, batch)[0].backward()
+        with torch.no_grad():
+            signs.append((b1 * ts.opt.m.to(dev) + (1.0 - b1) * g
+                          >= 0).cpu())
+    return float((signs[0] != signs[1]).float().mean())
+
+
+def phase_families_small() -> dict:
+    """15a: each new arch's reduced() config (and the MoE one under the
+    gather dispatch) through ``run`` on the card and on the CPU from one
+    seed: 3 warmup + 2 compressed steps, batch 4, block 512.  Launch
+    counts set to 0 just before the card's run and read just after; aux
+    > 0 on the MoE archs and 0 on the others.  The losses of steps 0-3
+    (every loss taken before a compressed update) agree within
+    SMALL_LOSS_RTOL, and the first compressed payload's sign bits within
+    FAMILIES_SIGN_FLIP_CEILING; step 4's loss, after the first compressed
+    update, is reported (see FAMILIES_SIGN_FLIP_CEILING)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import run
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        kw = dict(FAMILIES_SMALL, arch=arch,
+                  seq=FAMILIES_SEQ.get(arch, FAMILIES_SMALL["seq"]),
+                  verbose=False)
+        w = kw["warmup_steps"]
+        t0 = time.perf_counter()
+        build.reset_launch_counts()
+        card = run(device="cuda", **kw)
+        counts = build.launch_counts()
+        card_s = time.perf_counter() - t0
+        if counts != FAMILIES_SMALL_LAUNCHES or card["launches"] != counts:
+            raise AssertionError(f"{arch}: launch counts {counts}, expected "
+                                 f"{FAMILIES_SMALL_LAUNCHES}")
+        cpu = run(device="cpu", **kw)
+        losses = [(a["loss"], b["loss"]) for a, b in
+                  zip(card["history"], cpu["history"])]
+        aux = [h["aux"] for h in card["history"]]
+        if not all(math.isfinite(a) and math.isfinite(b)
+                   for a, b in losses):
+            raise AssertionError(f"{arch}: non-finite losses {losses}")
+        if [a["stage"] for a in card["history"]] != \
+                [b["stage"] for b in cpu["history"]]:
+            raise AssertionError(f"{arch}: stages differ")
+        if cfg.n_experts and not min(aux) > 0:
+            raise AssertionError(f"{arch}: MoE aux {aux}, expected > 0")
+        if not cfg.n_experts and any(aux):
+            raise AssertionError(f"{arch}: aux {aux} without experts")
+        rel = [abs(a - b) / abs(b) for a, b in losses]
+        if max(rel[:w + 1]) > SMALL_LOSS_RTOL:
+            raise AssertionError(f"{arch}: losses {losses[:w + 1]} card/cpu "
+                                 f"(rel {rel[:w + 1]})")
+        flips = _first_payload_flips(arch, kw)
+        if flips > FAMILIES_SIGN_FLIP_CEILING:
+            raise AssertionError(f"{arch}: {flips:.2e} of the first "
+                                 "compressed payload's sign bits differ "
+                                 "card/cpu")
+        out[arch] = dict(losses=losses, rel=rel, aux=aux, launches=counts,
+                         card_s=card_s, payload_flips=flips)
+        log(f"[families-small] {arch}: card vs cpu losses "
+            + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
+            + f" (rel through step {w}: max {max(rel[:w + 1]):.2e}; after "
+            f"the first compressed update {rel[w + 1:]}); first payload "
+            f"{flips:.2e} of its sign bits apart; aux "
+            + ", ".join(f"{x:.5f}" for x in aux) + f"; card run "
+            f"{card_s:.1f} s")
+    return out
+
+
+def phase_families_main() -> dict:
+    """15b: falcon-mamba-7b at full width (2 layers) through ``run``: 3
+    warmup + 3 compressed 1-bit Adam steps, batch 2 x seq 2048, block
+    4096, seed 0; launch counts read around exactly this run; then one
+    compressed step profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import run
+    from repro_torch.train.step import train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = run(device="cuda", **MAMBA)
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    w = MAMBA["warmup_steps"]
+    losses = [h["loss"] for h in hist]
+    stages = [h["stage"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"falcon-mamba-7b: non-finite losses {losses}")
+    if stages != ["warmup"] * w + ["compressed"] * (MAMBA["steps"] - w):
+        raise AssertionError(f"falcon-mamba-7b: stage did not flip at step "
+                             f"{w}: {stages}")
+    v_l1 = [h["v_l1"] for h in hist[w - 1:]]
+    if len(set(v_l1)) != 1:
+        raise AssertionError(f"falcon-mamba-7b: v changed in the "
+                             f"compressed stage: {v_l1}")
+    if counts != MAMBA_LAUNCHES or res["launches"] != counts:
+        raise AssertionError(f"falcon-mamba-7b: launch counts {counts}, "
+                             f"expected {MAMBA_LAUNCHES}")
+    if any(h["aux"] for h in hist):
+        raise AssertionError("falcon-mamba-7b: aux without experts")
+    warm_ms = [h["ms"] for h in hist[:w]]
+    comp_ms = [h["ms"] for h in hist[w:]]
+    log(f"[families-main] falcon-mamba-7b x 2 layers: d={res['d']} "
+        f"d_pad={res['d_pad']} losses " + ", ".join(f"{x:.4f}"
+                                                   for x in losses))
+    log(f"[families-main] warmup step ms {warm_ms}, compressed step ms "
+        f"{comp_ms}, peak memory {peak} bytes")
+    cfg = get_config(MAMBA_ARCH)
+    ts, opt, d, d_pad = res["state"], res["optimizer"], res["d"], \
+        res["d_pad"]
+    batch = SyntheticStream(cfg, InputShape("profile", MAMBA["seq"],
+                                            MAMBA["batch"], "train"),
+                            seed=1, device="cuda").batch_at(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(ts, opt, batch, 1e-4, "compressed")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_out = _device_breakdown(prof, wall_ms)
+    _log_breakdown("families-main", "compressed step (profiled)", prof_out)
+    del res, ts, opt, prof
+    torch.cuda.empty_cache()
+    return dict(d=d, d_pad=d_pad, launches=counts, losses=losses,
+                warmup_step_ms=warm_ms, compressed_step_ms=comp_ms,
+                peak_bytes=peak, profile=prof_out)
+
+
+def phase_moe_layer() -> dict:
+    """15c: mixtral-8x22b's MoE layer alone at full width (d 6144, ff
+    16384, 8 experts, top-2), f32 parameters from seed 0, no optimizer;
+    bf16 inputs, batch 2 x seq 4096: forward + backward under both
+    dispatches; outputs and input gradients held to each other; CUDA-event
+    ms of each dispatch and its peak memory."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.mlp import moe_capacity, moe_forward
+    dev = torch.device("cuda")
+    base = get_config("mixtral-8x22b")
+    d, ff, e = base.d_model, base.d_ff, base.n_experts
+    gen = torch.Generator(device=dev).manual_seed(MOE_LAYER["seed"])
+    p = {"router": torch.randn(d, e, generator=gen, device=dev) * 0.02,
+         "wg": torch.randn(e, d, ff, generator=gen, device=dev) * d ** -0.5,
+         "wu": torch.randn(e, d, ff, generator=gen, device=dev) * d ** -0.5,
+         "wd": torch.randn(e, ff, d, generator=gen, device=dev)
+         * ff ** -0.5}
+    for t in p.values():
+        t.requires_grad_(True)
+    b, s = MOE_LAYER["batch"], MOE_LAYER["seq"]
+    x0 = torch.randn(b, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    cot = torch.randn(b, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    cap = moe_capacity(base, b * s)
+    out = {"capacity": cap, "tokens": b * s}
+    res = {}
+    for dispatch in ("einsum", "gather"):
+        cfg = dataclasses.replace(base, moe_dispatch=dispatch)
+
+        def fwd_bwd():
+            for t in p.values():
+                t.grad = None
+            x = x0.clone().requires_grad_(True)
+            y, aux = moe_forward(p, x, cfg)
+            ((y.float() * cot.float()).sum() + aux).backward()
+            return y.detach(), aux.detach(), x.grad
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res[dispatch] = fwd_bwd()
+        peak = torch.cuda.max_memory_allocated()
+        times = sorted(_event_ms(fwd_bwd)[1] for _ in range(MOE_LAYER_REPS))
+        out[dispatch] = dict(ms=times[len(times) // 2], ms_all=times,
+                             peak_bytes=peak)
+        log(f"[moe-layer] {dispatch}: forward + backward "
+            f"{out[dispatch]['ms']:.2f} ms (median of {MOE_LAYER_REPS}: "
+            f"{', '.join(f'{t:.2f}' for t in times)}), peak {peak} bytes")
+    (ye, ae, ge), (yg, ag, gg) = res["einsum"], res["gather"]
+    for name, a, w_ in (("output", yg, ye), ("input gradient", gg, ge)):
+        diff = (a.float() - w_.float()).abs()
+        out[name] = dict(max_abs=float(diff.max()),
+                         bitwise_share=float((a == w_).float().mean()),
+                         atol_needed=atol_needed(a, w_,
+                                                 MOE_LAYER_TOL["rtol"]))
+        torch.testing.assert_close(a.float(), w_.float(), **MOE_LAYER_TOL)
+        log(f"[moe-layer] {name}: gather vs einsum max abs "
+            f"{out[name]['max_abs']:.3e}, "
+            f"{100 * out[name]['bitwise_share']:.2f} % bitwise, least atol "
+            f"at rtol 2^-7 {out[name]['atol_needed']:.3e}")
+    out["aux"] = [float(ae), float(ag)]
+    if float(ae) != float(ag):
+        raise AssertionError(f"moe layer: aux {float(ae)} / {float(ag)}")
+    del p, res, x0, cot
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -2079,6 +2386,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     obs = phase_obs(stats["losses"], main_state, stats, family)
     del main_state
+    torch.cuda.empty_cache()
+    _register_phase15_configs()
+    families = {"small": phase_families_small()}
+    families["main"] = phase_families_main()
+    families["moe_layer"] = phase_moe_layer()
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -2101,6 +2413,7 @@ def main() -> int:
                                 for part, c in claims.items()}
         e["launches_plan"] = plan["launches"][e["name"]]
         e["launches_obs"] = obs["a"]["launches"][e["name"]]
+        e["launches_families"] = families["main"]["launches"][e["name"]]
     print(json.dumps({"main_path": stats}))
     print(json.dumps({"family_path": {k: v for k, v in family.items()
                                       if k != "pipeline"}}))
@@ -2111,6 +2424,7 @@ def main() -> int:
     print(json.dumps({"claims": claims}))
     print(json.dumps({"plan": plan}))
     print(json.dumps({"obs": obs}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
-"""Architecture registry (the BERT encoders of slice 1, the llama3.2-3b
-decoder of slice 2, the internlm2-1.8b decoder of the benchmarks) and
-recipes."""
-from repro_torch.configs import (bert_large, internlm2_1_8b,  # noqa: F401
-                                 llama3_2_3b)
+"""Architecture registry (the reference's twelve archs) and recipes."""
+from repro_torch.configs import (bert_large, deepseek_7b,  # noqa: F401
+                                 falcon_mamba_7b, granite_34b,
+                                 internlm2_1_8b, internvl2_2b,
+                                 jamba_1_5_large, llama3_2_3b, llama4_scout,
+                                 mixtral_8x22b, musicgen_large)
 from repro_torch.configs.base import (ArchConfig, InputShape, OptimSpec,
                                       get_config, get_optim_recipe,
-                                      list_archs, list_optim_recipes)
+                                      list_archs, list_optim_recipes,
+                                      register)
 
 __all__ = ["ArchConfig", "InputShape", "OptimSpec", "get_config",
-           "get_optim_recipe", "list_archs", "list_optim_recipes"]
+           "get_optim_recipe", "list_archs", "list_optim_recipes",
+           "register"]

@@ -1,10 +1,12 @@
 """Architecture, input-shape and optimizer-recipe configuration.
 
-The port's copy of ``repro/configs/base.py``: the fields the BERT encoder
-training path (slice 1) and the dense-decoder serving path (slice 2)
-read, the derived sizes the planning stack reads (``padded_vocab``,
-``padded_heads``, ``is_attn_layer``, ``param_count``), ``reduced()`` (the
-CPU smoke variant, derived exactly as the reference derives it),
+The port's copy of ``repro/configs/base.py``: every family's fields (MoE,
+Mamba-1 SSM, the Jamba hybrid layout, the audio and VLM input stubs), the
+derived sizes (``d_inner``, ``dt_rank``, ``padded_vocab``,
+``padded_heads``), the layer rules (``is_attn_layer`` with the hybrid
+layout, ``is_moe_layer``), ``param_count`` and ``active_param_count``
+(the MoE rule), ``reduced()`` (the CPU smoke variant, derived exactly as
+the reference derives it),
 ``InputShape``, ``OptimSpec`` and the training recipes of the optimizer
 family, with the reference's ``onebit_adam_autotopo`` and
 ``onebit_adam_pipelined``, whose ``topology`` / ``pipeline`` the plan
@@ -13,10 +15,12 @@ tuner resolves.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "encoder")
 ATTN_IMPLS = ("auto", "full", "chunked", "pallas")
+MOE_DISPATCH = ("einsum", "gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +41,29 @@ class ArchConfig:
     n_kv_heads: int
     d_ff: int
     vocab: int
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 0
+    moe_every: int = 1             # MoE FFN every k-th layer (Jamba: 2)
+    capacity_factor: float = 1.25
+    # "einsum": one-hot (t, capacity) dispatch matmuls;
+    # "gather": index dispatch and scatter-add
+    moe_dispatch: str = "einsum"
+    # SSM (Mamba-1)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    # hybrid (Jamba): one attention layer per `attn_every` layers
+    attn_every: int = 0
     window: Optional[int] = None   # sliding-window size (Mixtral: 4096)
     rope_theta: float = 10_000.0
     causal: bool = True            # False for encoder-only (BERT)
     mlp_kind: str = "swiglu"       # "swiglu" | "gelu"
-    # input modality; the port serves "tokens" only
+    # input modality: "tokens" (LM), "embeddings" (audio stub: frames are
+    # given), "prefix" (VLM stub: patch-embedding prefix + text tokens);
+    # the port serves "tokens" only
     embed_kind: str = "tokens"
+    n_prefix: int = 256            # VLM: patch embeddings per sample
     norm_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
     remat: bool = True             # activation-checkpoint each block
@@ -60,10 +81,20 @@ class ArchConfig:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.n_heads and self.d_model % self.n_heads:
             raise ValueError("d_model must split over the heads")
+        if self.moe_dispatch not in MOE_DISPATCH:
+            raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}")
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(math.ceil(self.d_model / 16), 1)
 
     def padded_vocab(self, tp: int = 1) -> int:
         q = 8 * tp  # keep byte-alignment for the vocab-parallel shard
@@ -76,8 +107,15 @@ class ArchConfig:
         return ((self.n_heads + tp - 1) // tp) * tp
 
     def is_attn_layer(self, i: int) -> bool:
-        """Every layer of the port's families (encoder, dense) attends."""
-        return self.n_heads > 0
+        """Hybrid layout: within each attn_every-block the middle layer
+        attends (Jamba: 1 attention layer per 8), the others are Mamba."""
+        if self.family != "hybrid":
+            return self.n_heads > 0
+        return (i % self.attn_every) == self.attn_every // 2
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and \
+            (i % self.moe_every) == self.moe_every - 1
 
     def param_count(self, tp: int = 1) -> int:
         """Parameter count of ``init_params`` (padding included)."""
@@ -87,21 +125,32 @@ class ArchConfig:
         return flat_size(self)
 
     def active_param_count(self, tp: int = 1) -> int:
-        """Parameters touched a token: all of them (no MoE layers)."""
-        return self.param_count(tp)
+        """Parameters touched a token (MoE: only the top_k experts)."""
+        total = self.param_count(tp)
+        if not self.n_experts:
+            return total
+        n_moe = sum(self.is_moe_layer(i) for i in range(self.n_layers))
+        expert_params = n_moe * self.n_experts * 3 * self.d_model * self.d_ff
+        active = n_moe * self.moe_top_k * 3 * self.d_model * self.d_ff
+        return total - expert_params + active
 
     def reduced(self) -> "ArchConfig":
-        """The CPU-smoke variant: 2 layers, d_model 256, <= 4 heads."""
+        """The CPU-smoke variant: 2 layers (a hybrid: one attn_every
+        period), d_model 256, <= 4 heads, <= 4 experts, top-k <= 2, a
+        16-patch prefix."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
-            n_layers=2,
+            n_layers=2 if self.family != "hybrid" else self.attn_every,
             d_model=256,
             n_heads=n_heads,
             n_kv_heads=min(self.n_kv_heads, max(n_heads // 2, 1)),
             d_ff=512,
             vocab=512,
+            n_experts=min(self.n_experts, 4),
+            moe_top_k=min(self.moe_top_k, 2),
+            n_prefix=16,
             window=min(self.window, 64) if self.window else None,
             compute_dtype="float32",
             attn_chunk=64,

@@ -4,9 +4,13 @@ The same task as the reference's stream (``repro/data/synthetic.py``): a
 Markov token stream with a Zipf start token, transitions through one fixed
 random permutation and 10% uniform noise, and for encoders MLM masking of
 15% of the tokens with token ``vocab - 1`` (labels are the unmasked
-tokens, the loss mask the masked positions).  It is drawn from numpy, so
-it does not reproduce the reference's ``jax.random`` bits; parity tests
-feed the reference's batches instead.
+tokens, the loss mask the masked positions).  The input stubs, as the
+reference's: an ``embeddings`` model (audio) takes N(0, 1) frames (B, S,
+d) with Markov labels; a ``prefix`` model (VLM) takes ``S - n_prefix``
+text tokens, N(0, 1) patch embeddings (B, n_prefix, d) and the shifted
+labels.  Frames and patches come in the compute dtype.  The stream is
+drawn from numpy, so it does not reproduce the reference's ``jax.random``
+bits; parity tests feed the reference's batches instead.
 
 ``SyntheticStream(..., shard, n_shards)`` seeds each batch from (seed,
 step, shard), so each dp rank sees its own reproducible slice.
@@ -21,6 +25,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 
 PERM_SEED = 1234
+# the float inputs of the stubs, carried in the compute dtype
+FRAME_KEYS = ("embeddings", "patch_embeds")
 
 
 def _markov_tokens(rng: np.random.Generator, b: int, s: int,
@@ -39,7 +45,23 @@ def _markov_tokens(rng: np.random.Generator, b: int, s: int,
 
 def make_batch(cfg: ArchConfig, b: int, s: int,
                rng: np.random.Generator) -> Dict[str, np.ndarray]:
-    """One training batch as numpy arrays (int32 tokens/labels, f32 mask)."""
+    """One training batch as numpy arrays (int32 tokens/labels, f32 mask,
+    f32 frames or patches)."""
+    if cfg.embed_kind == "embeddings":
+        labels = _markov_tokens(rng, b, s, cfg.vocab)
+        return {"embeddings": rng.standard_normal(
+                    (b, s, cfg.d_model), dtype=np.float32),
+                "labels": labels.astype(np.int32)}
+    if cfg.embed_kind == "prefix":
+        st = s - cfg.n_prefix
+        if st <= 0:
+            raise ValueError(f"seq {s} leaves no text after the "
+                             f"{cfg.n_prefix}-patch prefix")
+        toks = _markov_tokens(rng, b, st + 1, cfg.vocab)
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "patch_embeds": rng.standard_normal(
+                    (b, cfg.n_prefix, cfg.d_model), dtype=np.float32),
+                "labels": toks[:, 1:].astype(np.int32)}
     toks = _markov_tokens(rng, b, s + 1, cfg.vocab)
     tokens, labels = toks[:, :-1], toks[:, 1:]
     batch = {"tokens": tokens.astype(np.int32),
@@ -70,5 +92,7 @@ class SyntheticStream:
         rng = np.random.default_rng([self.seed, step, self.shard])
         batch = make_batch(self.cfg, self.local_batch, self.shape.seq_len,
                            rng)
-        return {k: torch.from_numpy(v).to(self.device)
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        return {k: torch.from_numpy(v).to(
+                    self.device, dtype=dtype if k in FRAME_KEYS else None)
                 for k, v in batch.items()}

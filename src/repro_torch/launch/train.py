@@ -1,4 +1,7 @@
-"""Training entry point of the port: the optimizer family on the BERT encoder.
+"""Training entry point of the port: the optimizer family on every arch
+the registry holds (``--arch``: the BERT encoders, the dense, MoE, SSM and
+hybrid decoders, the audio and VLM stubs; ``NAME-smoke`` for the reduced
+config).
 
 Runs on the card unless asked for the CPU (``--device cpu``); asking for
 ``cuda`` without a card raises.  One process is one dp rank: run it alone
@@ -920,7 +923,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="bert-base-smoke")
+    ap.add_argument("--arch", default="bert-base-smoke",
+                    help="a registered arch (repro_torch.configs."
+                         "list_archs()), or one with -smoke for its "
+                         "reduced config")
     ap.add_argument("--recipe", default="onebit_adam",
                     choices=list_optim_recipes())
     ap.add_argument("--optimizer", default=None,

@@ -1,31 +1,39 @@
 """The transformer: parameter layout, init, the training module and loss
-(the BERT encoder, slice 1), and the serving forward passes of the dense
-decoders (``prefill``, ``init_caches``, ``decode_step``; slice 2).
+(every family at tp=1: the BERT encoder, the dense and MoE decoders, the
+Mamba-1 SSM, the Jamba hybrid, the audio and VLM input stubs), and the
+serving forward passes of the dense decoders (``prefill``,
+``init_caches``, ``decode_step``; slice 2).
 
 Parameters keep the reference's shapes and order: ``(d_in, d_out)``
-weights, the per-layer leaves stacked on a leading layer axis under
-``blocks.l0``, and the ``ravel_pytree`` order of ``repro`` (sorted keys at
-every level: ``blocks.l0.{ffn.{wd,wg}, mixer.{wk,wo,wq,wv}, norm1, norm2}``,
-``embed``, ``norm_f``, ``w_out``; each leaf in C order).  So one flat f32
-vector holds every parameter at the same offset as the reference's flat
-vector, and the 4096-element scale blocks of the compressor cover the same
+weights, the per-layer leaves stacked on a leading superblock axis under
+``blocks.l{i}`` (``i`` the layer's place in the superblock: one layer for
+every family but the hybrid, whose superblock is ``attn_every`` layers),
+and the ``ravel_pytree`` order of ``repro`` (sorted keys at every level:
+``blocks.l0.{ffn.{wd,wg}, mixer.{wk,wo,wq,wv}, norm1, norm2}``, ``embed``,
+``norm_f``, ``w_out``; each leaf in C order).  So one flat f32 vector
+holds every parameter at the same offset as the reference's flat vector,
+and the 4096-element scale blocks of the compressor cover the same
 elements.
 
 :class:`Transformer` is built over such a flat vector: each of its
-``nn.Parameter``s is a view of it (layer ``i`` of a stacked leaf is the
-``i``-th slice), so an update of the flat vector is an update of the
+``nn.Parameter``s is a view of it (superblock ``s`` of a stacked leaf is
+its ``s``-th slice), so an update of the flat vector is an update of the
 model.  :meth:`Transformer.bind_grads` points every parameter's ``.grad``
 at the matching view of a flat gradient buffer, into which autograd then
-accumulates in place: the backward pass writes the flat gradient directly.
+accumulates in place: the backward pass writes the flat gradient
+directly.  With ``cfg.remat`` each superblock is recomputed in backward,
+as the reference's ``jax.checkpoint`` of its scan body.
 
 The serving functions take the params as the dict from dotted path to
 tensor (``init_params``, ``convert.params_from_jax``) with the layers
 stacked on the leading axis, and return the decode caches stacked the same
 way, ``{"l0": {"k", "v"}}`` of shape (L, B, S_c, Hkv, hd), as the
-reference's ``prefill`` / ``decode_step`` do.
+reference's ``prefill`` / ``decode_step`` do.  They take the dense
+decoders with token inputs only.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -36,42 +44,77 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.attention import attn_forward
 from repro_torch.models.common import dense, rms_norm
-from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.mlp import mlp_forward, moe_forward
 
 Shapes = List[Tuple[str, Tuple[int, ...]]]
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("encoder", "dense"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(the port has the BERT encoder and the "
-                                  "dense decoders)")
-    if cfg.embed_kind != "tokens":
-        raise NotImplementedError(f"embed_kind {cfg.embed_kind!r} is not "
-                                  "ported yet")
+def superblock_layout(cfg: ArchConfig) -> List[Tuple[str, Optional[str]]]:
+    """(mixer, ffn) of each layer of one superblock: ``("ssm", None)`` for
+    the SSM; ``attn_every`` layers for the hybrid (attention where
+    ``is_attn_layer``, MoE where ``is_moe_layer``); ``("attn", "moe" |
+    "dense")`` otherwise."""
+    if cfg.family == "ssm":
+        return [("ssm", None)]
+    if cfg.family == "hybrid":
+        return [("attn" if cfg.is_attn_layer(i) else "ssm",
+                 "moe" if cfg.is_moe_layer(i) else "dense")
+                for i in range(cfg.attn_every)]
+    return [("attn", "moe" if cfg.n_experts else "dense")]
+
+
+def n_superblocks(cfg: ArchConfig) -> int:
+    per = len(superblock_layout(cfg))
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.n_layers} layers do not split into "
+                         f"superblocks of {per}")
+    return cfg.n_layers // per
+
+
+def _layer_shapes(cfg: ArchConfig, n: int, mixer: str,
+                  ffn: Optional[str]) -> dict:
+    """The leaves of one layer kind, stacked over ``n`` superblocks."""
+    d, ff = cfg.d_model, cfg.d_ff
+    tree = {"norm1": (n, d)}
+    if mixer == "attn":
+        q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        tree["mixer"] = {"wq": (n, d, q), "wk": (n, d, kv),
+                         "wv": (n, d, kv), "wo": (n, q, d)}
+    else:
+        di, st, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+        tree["mixer"] = {
+            "A_log": (n, di, st), "D": (n, di),
+            "conv_w": (n, cfg.ssm_conv, di), "dt_bias": (n, di),
+            "dt_proj": (n, r, di),
+            "in_proj_x": (n, d, di), "in_proj_z": (n, d, di),
+            "out_proj": (n, di, d), "x_proj": (n, di, r + 2 * st)}
+    if ffn == "moe":
+        e = cfg.n_experts
+        tree["ffn"] = {"router": (n, d, e), "wg": (n, e, d, ff),
+                       "wu": (n, e, d, ff), "wd": (n, e, ff, d)}
+    elif ffn == "dense":
+        tree["ffn"] = {"wg": (n, d, ff), "wd": (n, ff, d)}
+        if cfg.mlp_kind == "swiglu":
+            tree["ffn"]["wu"] = (n, d, ff)
+    if ffn is not None:
+        tree["norm2"] = (n, d)
+    return tree
 
 
 def leaf_shapes(cfg: ArchConfig) -> Shapes:
     """(dotted path, shape) of every parameter leaf in ravel order."""
-    _check_supported(cfg)
-    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
-    hd = cfg.head_dim
-    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    vp = cfg.padded_vocab(1)
-    ffn = {"wg": (L, d, ff), "wd": (L, ff, d)}
-    if cfg.mlp_kind == "swiglu":
-        ffn["wu"] = (L, d, ff)
+    nsb = n_superblocks(cfg)
+    d, vp = cfg.d_model, cfg.padded_vocab(1)
     tree = {
-        "blocks": {"l0": {
-            "norm1": (L, d), "norm2": (L, d),
-            "mixer": {"wq": (L, d, q), "wk": (L, d, kv), "wv": (L, d, kv),
-                      "wo": (L, q, d)},
-            "ffn": ffn,
-        }},
-        "norm_f": (d,), "w_out": (d, vp), "embed": (vp, d),
+        "blocks": {f"l{i}": _layer_shapes(cfg, nsb, mx, ff)
+                   for i, (mx, ff) in enumerate(superblock_layout(cfg))},
+        "norm_f": (d,), "w_out": (d, vp),
     }
+    if cfg.embed_kind in ("tokens", "prefix"):
+        tree["embed"] = (vp, d)
     out: Shapes = []
 
     def walk(node, prefix):
@@ -91,17 +134,22 @@ def flat_size(cfg: ArchConfig) -> int:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cpu") -> Dict[str, torch.Tensor]:
     """Random f32 parameters with the reference's distributions (norm
-    scales 1, linear weights N(0, 1/d_in), ``w_out`` N(0, 1/d), ``embed``
-    N(0, 0.02^2)), drawn from ``generator`` in ravel order."""
+    scales 1, linear weights and expert stacks N(0, 1/d_in), ``w_out``
+    N(0, 1/d), ``embed`` and the MoE router N(0, 0.02^2), the SSM's own
+    leaves as ``ssm.init_leaf``), drawn from ``generator`` in ravel
+    order."""
     params = {}
     for path, shape in leaf_shapes(cfg):
         leaf = path.rsplit(".", 1)[-1]
         if leaf.startswith("norm"):
             t = torch.ones(shape)
+        elif leaf in S.SPECIAL_LEAVES:
+            t = S.init_leaf(leaf, shape, generator)
         else:
             t = torch.randn(shape, generator=generator,
                             device=generator.device)
-            scale = 0.02 if leaf == "embed" else shape[-2] ** -0.5
+            scale = 0.02 if leaf in ("embed", "router") \
+                else shape[-2] ** -0.5
             t = t * scale
         params[path] = t.to(device=device, dtype=torch.float32)
     return params
@@ -113,37 +161,73 @@ def _sub(views: Dict[str, Any], prefix: str) -> Dict[str, Any]:
             if p.startswith(prefix)}
 
 
-class Block(nn.Module):
-    """One pre-norm residual layer."""
+# the order in which each layer kind's forward first uses its leaves
+_FORWARD_ORDER = {
+    "attn": ("wq", "wk", "wv", "wo"),
+    "ssm": ("in_proj_x", "in_proj_z", "conv_w", "x_proj", "dt_proj",
+            "dt_bias", "A_log", "D", "out_proj"),
+    "dense": ("wg", "wu", "wd"),
+    "moe": ("router", "wg", "wu", "wd"),
+}
 
-    def __init__(self, cfg: ArchConfig, views: Dict[str, torch.Tensor]):
+
+class Block(nn.Module):
+    """One pre-norm residual layer: a mixer (``"attn"`` | ``"ssm"``) and,
+    but for the SSM's layers, an FFN (``"dense"`` | ``"moe"``)."""
+
+    def __init__(self, cfg: ArchConfig, views: Dict[str, torch.Tensor],
+                 mixer: str, ffn: Optional[str]):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mixer_kind, self.ffn_kind = cfg, mixer, ffn
         self.norm1 = nn.Parameter(views["norm1"])
-        self.norm2 = nn.Parameter(views["norm2"])
         self.mixer = nn.ParameterDict(
             {k: nn.Parameter(t) for k, t in _sub(views, "mixer.").items()})
+        self.norm2 = nn.Parameter(views["norm2"]) if ffn else None
         self.ffn = nn.ParameterDict(
             {k: nn.Parameter(t) for k, t in _sub(views, "ffn.").items()})
 
     def forward_params(self) -> List[nn.Parameter]:
         """The layer's parameters in the order ``forward`` first uses
         them."""
-        return [self.norm1] + [self.mixer[k] for k in
-                               ("wq", "wk", "wv", "wo")] + \
-            [self.norm2] + [self.ffn[k] for k in ("wg", "wu", "wd")
-                            if k in self.ffn]
+        out = [self.norm1] + [self.mixer[k] for k in
+                              _FORWARD_ORDER[self.mixer_kind]]
+        if self.ffn_kind:
+            out += [self.norm2] + [self.ffn[k] for k in
+                                   _FORWARD_ORDER[self.ffn_kind]
+                                   if k in self.ffn]
+        return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        eps = self.cfg.norm_eps
-        x = x + attn_forward(self.mixer, rms_norm(x, self.norm1, eps),
-                             self.cfg)
-        return x + mlp_forward(self.ffn, rms_norm(x, self.norm2, eps),
-                               self.cfg)
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x, the MoE layer's aux loss or None)."""
+        eps, cfg = self.cfg.norm_eps, self.cfg
+        h = rms_norm(x, self.norm1, eps)
+        if self.mixer_kind == "attn":
+            x = x + attn_forward(self.mixer, h, cfg)
+        else:
+            x = x + S.ssm_forward(self.mixer, h, cfg)
+        aux = None
+        if self.ffn_kind == "moe":
+            y, aux = moe_forward(self.ffn, rms_norm(x, self.norm2, eps), cfg)
+            x = x + y
+        elif self.ffn_kind == "dense":
+            x = x + mlp_forward(self.ffn, rms_norm(x, self.norm2, eps), cfg)
+        return x, aux
+
+
+def _superblock(blocks, x: torch.Tensor):
+    """Run the layers of one superblock: (x, the sum of their aux losses
+    or None)."""
+    aux = None
+    for blk in blocks:
+        x, a = blk(x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 class Transformer(nn.Module):
-    """The encoder over a flat f32 parameter vector (see module doc)."""
+    """The model over a flat f32 parameter vector (see module doc)."""
 
     def __init__(self, cfg: ArchConfig, flat: torch.Tensor):
         super().__init__()
@@ -159,19 +243,30 @@ class Transformer(nn.Module):
             n = math.prod(shape)
             views[path] = flat[off:off + n].view(shape)
             off += n
-        per_layer = [{p: v[i] for p, v in _sub(views, "blocks.l0.").items()}
-                     for i in range(cfg.n_layers)]
-        self.blocks = nn.ModuleList(Block(cfg, lv) for lv in per_layer)
-        self.embed = nn.Parameter(views["embed"])
+        self.layout = superblock_layout(cfg)
+        blocks = []
+        for sb in range(n_superblocks(cfg)):
+            for i, (mx, ff) in enumerate(self.layout):
+                lv = {p: v[sb] for p, v in
+                      _sub(views, f"blocks.l{i}.").items()}
+                blocks.append(Block(cfg, lv, mx, ff))
+        self.blocks = nn.ModuleList(blocks)
+        self.embed = nn.Parameter(views["embed"]) if "embed" in views \
+            else None
         self.norm_f = nn.Parameter(views["norm_f"])
         self.w_out = nn.Parameter(views["w_out"])
         self._flat = flat
+
+    def superblocks(self) -> List[nn.ModuleList]:
+        per = len(self.layout)
+        return [self.blocks[i:i + per]
+                for i in range(0, len(self.blocks), per)]
 
     def grad_order(self) -> List[nn.Parameter]:
         """Every parameter in the order backward completes its gradient:
         the reverse of the order ``loss_fn`` first uses them (a static
         order, the same on every rank: ``w_out`` first, ``embed`` last)."""
-        fwd = [self.embed]
+        fwd = [self.embed] if self.embed is not None else []
         for blk in self.blocks:
             fwd += blk.forward_params()
         return list(reversed(fwd + [self.norm_f, self.w_out]))
@@ -213,23 +308,50 @@ def vocab_parallel_xent(x: torch.Tensor, w_out: torch.Tensor,
     return loss, acc
 
 
-def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
-    """Training loss of this rank's batch: (total, {"loss", "aux", "acc"}).
-    A dense encoder has no auxiliary loss, so total == loss."""
+def _inputs_to_h0(model: Transformer, batch: Dict[str, torch.Tensor],
+                  dtype) -> torch.Tensor:
+    """The modality inputs as the first hidden states (B, S, d): token
+    embeddings; the given frames (audio stub); or the patch prefix
+    followed by the text's embeddings (VLM stub)."""
+    kind = model.cfg.embed_kind
+    if kind == "embeddings":
+        return batch["embeddings"].to(dtype)
+    txt = F.embedding(batch["tokens"].long(), model.embed).to(dtype)
+    if kind == "prefix":
+        return torch.cat([batch["patch_embeds"].to(dtype), txt], dim=1)
+    return txt
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01):
+    """Training loss of this rank's batch: (total, {"loss", "aux",
+    "acc"}), ``total = loss + aux_weight * aux`` with ``aux`` the MoE
+    layers' load-balance losses summed (0 without experts, and then
+    total == loss).  A ``prefix`` model's loss is over the text positions
+    only."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.compute_dtype)
-    h = F.embedding(batch["tokens"].long(), model.embed).to(dtype)
-    for blk in model.blocks:
-        h = checkpoint(blk, h, use_reentrant=False) if cfg.remat else blk(h)
+    h = _inputs_to_h0(model, batch, dtype)
+    aux = None
+    for sb in model.superblocks():
+        fn = functools.partial(_superblock, sb)
+        h, a = checkpoint(fn, h, use_reentrant=False) if cfg.remat \
+            else fn(h)
+        if a is not None:
+            aux = a if aux is None else aux + a
     h = rms_norm(h, model.norm_f, cfg.norm_eps)
     labels = batch["labels"]
+    if cfg.embed_kind == "prefix":
+        h = h[:, -labels.shape[1]:, :]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     loss, acc = vocab_parallel_xent(h, model.w_out, labels, mask, cfg)
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss, "aux": zero, "acc": acc}
+    if aux is None:
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"loss": loss, "aux": zero, "acc": acc}
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux, "acc": acc}
 
 
 # --------------------------------------------------------------------------
@@ -251,7 +373,12 @@ def _layers(params: Params, cfg: ArchConfig) -> List[Dict[str, Any]]:
 
 def check_serving(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is an arch the serving path takes."""
-    _check_supported(cfg)
+    if cfg.family not in ("encoder", "dense") or cfg.embed_kind != "tokens":
+        raise NotImplementedError(
+            f"serving {cfg.name!r} (family {cfg.family!r}, embed_kind "
+            f"{cfg.embed_kind!r}) is not ported yet: the MoE and SSM layers "
+            "and the embeddings/prefix inputs in prefill and decode are "
+            "ROADMAP Queue 1 item 2, 'the rest of serving'")
     if cfg.family == "encoder":
         raise ValueError("encoder-only archs do not decode")
 

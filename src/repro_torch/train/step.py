@@ -257,11 +257,14 @@ class _Overlap:
 
 
 def _grads(ts: TrainState, batch: Dict[str, torch.Tensor],
-           accum_steps: int, overlap: Optional[_Overlap] = None):
+           accum_steps: int, overlap: Optional[_Overlap] = None,
+           aux_weight: float = 0.01):
     """Fill ``ts.g`` with this rank's gradient, accumulation averaged in
     as the reference's ``_grad_tree``: the microbatch gradients summed in
     order, then divided by ``accum_steps`` (under backward overlap each
-    bucket's slice divides as it is fed).  Returns (total, metrics)."""
+    bucket's slice divides as it is fed).  Every input (tokens, labels,
+    mask, frames, patches) is cut along its batch axis.  Returns (total,
+    metrics)."""
     ts.g.zero_()
     a = max(accum_steps, 1)
     b = next(iter(batch.values())).shape[0]
@@ -272,7 +275,7 @@ def _grads(ts: TrainState, batch: Dict[str, torch.Tensor],
     for i in range(a):
         tot, met = loss_fn(ts.model, batch if a == 1 else
                            {k: v[i * mb:(i + 1) * mb]
-                            for k, v in batch.items()})
+                            for k, v in batch.items()}, aux_weight)
         last = overlap is not None and i == a - 1
         if last:
             overlap.arm()
@@ -319,7 +322,8 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
                dp_axes: Sequence[str] = (), sync: bool = True,
                accum_steps: int = 1, pod_axes: Sequence[str] = (),
                topology: str = "flat", n_buckets: int = 1,
-               overlap_bwd: bool = False) -> Dict[str, torch.Tensor]:
+               overlap_bwd: bool = False, aux_weight: float = 0.01
+               ) -> Dict[str, torch.Tensor]:
     """One step of ``stage`` ("warmup" | "compressed"); updates ``ts`` and
     returns the metrics (0-dim tensors): loss/aux/acc/total dp-meaned,
     ``v_l1`` (the global one: summed over the shards under zero1,
@@ -328,7 +332,9 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
     ``sync=False`` is a 0-bit compression-stage step (no exchange, no
     model update) and needs the ``local`` layout.  Under zero1 every step
     is a compressed update, as in the reference.  See the module doc for
-    the axes, ``topology``, ``n_buckets`` and ``overlap_bwd``."""
+    the axes, ``topology``, ``n_buckets`` and ``overlap_bwd``.
+    ``aux_weight`` scales the MoE load-balance loss into the total (the
+    reference's ``TrainStepConfig.aux_weight``)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}")
     if topology not in TOPOLOGIES:
@@ -347,7 +353,7 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
             order_of=functools.partial(backward_ready_order, ts))
         if ex is not None:
             overlap = _Overlap(ts, optimizer, ex, accum_steps)
-    total, metrics = _grads(ts, batch, accum_steps, overlap)
+    total, metrics = _grads(ts, batch, accum_steps, overlap, aux_weight)
     ts.stage0_in_bwd = overlap.early if overlap is not None else 0
     kw = dict(dp_axes=inner, pod_axes=outer, segs=ts.segs, sync=sync,
               n_buckets=n_buckets,

@@ -22,7 +22,10 @@ rtol) / atol 5e-3 (the wgmma kernel rounds p to the input dtype before
 p v; chip_smoke.py reads the least atol that passes, at most 2.9e-3);
 head dims above 256 (the split kernel's wide route) f32 rtol 1e-5 / atol
 1e-5 (the scores sum up to 1024 products), 16-bit at one output ulp
-(``WIDE_TOL``).
+(``WIDE_TOL``).  The model families: a run's losses on the card and on
+the CPU rtol 1e-3 (``test_small_run_on_card_matches_cpu``'s); a bf16
+MoE layer's two dispatches at one bf16 ulp; the f32 layer against the
+CPU rtol 1e-5 (gradients 1e-4), atol 1e-5 of the largest entry.
 """
 import numpy as np
 import pytest
@@ -266,6 +269,94 @@ def test_f32_route_long_sequence(card, causal, window):
     moved = _flash_case(card, (1, 4, 1536, 128), torch.float32, causal,
                         window)
     assert moved == {"flash_attention"}
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b-smoke",
+                                  "falcon-mamba-7b-smoke",
+                                  "jamba-1.5-large-398b-smoke",
+                                  "musicgen-large-smoke",
+                                  "internvl2-2b-smoke"])
+def test_family_run_on_card_matches_cpu(card, arch):
+    """One arch of each family beyond the dense ones (MoE, SSM, hybrid,
+    audio and VLM stubs) through ``run`` on the card and on the CPU from
+    one seed: 2 warmup steps and the first compressed step's loss (taken
+    before any compressed update, so the routing of a MoE layer cannot
+    yet differ) agree to rtol 1e-3, the launches are the optimizer
+    path's, aux is positive exactly with experts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    seq = 48 if arch.startswith("internvl2") else 32
+    kw = dict(arch=arch, steps=3, warmup_steps=2, batch=2, seq=seq,
+              block_size=512, lr=2e-3, lr_warmup=2, verbose=False)
+    on_card = run(device="cuda", **kw)
+    assert on_card["launches"] == {"adam_step": 2, "ef_compress": 2,
+                                   "decompress": 2, "flash_attention": 0,
+                                   "flash_attention_wgmma": 0,
+                                   "flash_attention_wide": 0}
+    cpu = run(device="cpu", **kw)
+    np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
+                               [h["loss"] for h in cpu["history"]],
+                               rtol=1e-3)
+    aux = [h["aux"] for h in on_card["history"]]
+    assert (min(aux) > 0) if get_config(arch).n_experts else not any(aux)
+
+
+def _moe_case(card, dtype, dispatch, device, d=768, ff=1024, e=8):
+    """A MoE layer (top-2 of ``e`` experts, t = 512) forward + backward:
+    (y, aux, x.grad, the router's grad) on ``device``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.mlp import moe_forward
+    cfg = dataclasses.replace(
+        get_config("mixtral-8x22b"), d_model=d, d_ff=ff, n_experts=e,
+        moe_dispatch=dispatch, compute_dtype=str(dtype).split(".")[-1])
+    gen = torch.Generator().manual_seed(0)
+    p = {"router": torch.randn(d, e, generator=gen) * 0.02,
+         "wg": torch.randn(e, d, ff, generator=gen) * d ** -0.5,
+         "wu": torch.randn(e, d, ff, generator=gen) * d ** -0.5,
+         "wd": torch.randn(e, ff, d, generator=gen) * ff ** -0.5}
+    x = torch.randn(2, 256, d, generator=gen)
+    cot = torch.randn(2, 256, d, generator=gen)
+    p = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+    x = x.to(device=device, dtype=dtype).requires_grad_(True)
+    y, aux = moe_forward(p, x, cfg)
+    ((y.float() * cot.to(device)).sum() + aux).backward()
+    return [t.detach().float().cpu() for t in
+            (y, aux, x.grad, p["router"].grad)]
+
+
+def test_moe_dispatches_agree_on_card(card):
+    """The einsum and the gather dispatch of a bf16 MoE layer on the card
+    (a reduced size of chip_smoke.py's phase 15c): one-hot dispatch moves
+    each token exactly and both sum the experts in expert order, so the
+    bf16 output and input gradient agree to one bf16 ulp."""
+    ye, ae, ge, _ = _moe_case(card, torch.bfloat16, "einsum", card)
+    yg, ag, gg, _ = _moe_case(card, torch.bfloat16, "gather", card)
+    torch.testing.assert_close(yg, ye, rtol=2 ** -7, atol=1e-6)
+    torch.testing.assert_close(gg, ge, rtol=2 ** -7, atol=1e-6)
+    assert float(ae) == float(ag)
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "gather"])
+def test_moe_layer_on_card_matches_cpu(card, dispatch):
+    """The f32 MoE layer on the card (TF32 off) against the CPU: the
+    output rtol 1e-5 and the gradients rtol 1e-4, each with an atol of
+    1e-5 of its largest entry (cuBLAS and the CPU BLAS sum the d and d_ff
+    products in other orders; near-zero outputs keep only the absolute
+    error, which an H100 read at 1.5e-6)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _moe_case(card, torch.float32, dispatch, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = _moe_case(card, torch.float32, dispatch, "cpu")
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                               atol=1e-5 * float(want[0].abs().max()))
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0.0)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 def test_nccl_exchange_carries_both_payloads(card, tmp_path):
