@@ -181,13 +181,42 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                outputs and input gradients held to each other at one bf16
                ulp; CUDA-event ms and peak memory of each.  Prints the
                ``{"families": {...}}`` line.
+ 16. serve-families — the rest of serving (MoE, SSM and hybrid layers with
+               their caches, the VLM prefix, the audio stub's frames).
+               16a: the reduced() config of mixtral-8x22b (einsum and
+               gather), llama4-scout, falcon-mamba-7b, jamba, internvl2-2b
+               (its patch prefix) and musicgen-large (frames, through
+               ``decode_step``) in f32 with attn_impl="pallas", on the card
+               and on the CPU from one seed: prefill logits and 8
+               teacher-forced decode steps within SERVE_SMALL_TOL up to the
+               first step where a token routes to another expert (counted
+               each step); the f32 flash route once per attention layer.
+               16b: the full-width path, falcon-mamba-7b at its published
+               width and depth (64 layers, d 4096, d_inner 8192, state 16,
+               vocab 65,024, bf16, random weights from seed 0) through
+               ``ServeEngine.generate``: batch 8 x 2048-token prompts, 32
+               greedy new tokens; launch counts read around exactly this
+               run (none: the SSM has no kernel); prefill ms, decode ms a
+               step, tokens/s, peak memory; one prefill and one decode step
+               under torch.profiler.  16c: mixtral-8x22b at full width (d
+               6144, 48 q / 8 kv heads, 8 experts top-2, window 4096) cut
+               to 2 layers, bf16, attn_impl="pallas": ``generate`` on batch
+               2 x 5120-token prompts (past the window: the prefill seeds
+               the ring buffer), 16 new tokens; exactly 2 launches of the
+               wgmma flash kernel (its windowed route) and no other kernel;
+               the kernel against its plain version on layer 0's inputs;
+               the last-position logits of the flash route and of
+               attn_impl="full" each against the model in f32 (see
+               SERVE_MIXTRAL_TOL).  Prints the ``{"serve_families":
+               {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
 phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
 phase 12, the sweep and the auto run in phase 13, the observed run in
-phase 14a, each card run of phase 15a and the full-width run of 15b) and
-read just after it.  It prints the ``{"kernels": [...]}``
+phase 14a, each card run of phase 15a and the full-width run of 15b, each
+card run of phase 16a and the generate calls of 16b and 16c) and read just
+after it.  It prints the ``{"kernels": [...]}``
 line, the card line, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -351,6 +380,40 @@ MOE_LAYER_REPS = 3
 # are held at one bf16 ulp (2^-7 relative)
 MOE_LAYER_TOL = dict(rtol=2 ** -7, atol=1e-6)
 
+# phase 16: the rest of serving.  16a: every decoding family beyond the
+# dense token decoders, reduced() and in f32 with attn_impl="pallas", card
+# against CPU as phase 8 (the prompt passes mixtral-smoke's window of 64)
+SERVE_FAMILY_ARCHS = ("mixtral-8x22b-smoke", "mixtral-8x22b-smoke-gather",
+                      "llama4-scout-17b-a16e-smoke", "falcon-mamba-7b-smoke",
+                      "jamba-1.5-large-398b-smoke", "internvl2-2b-smoke",
+                      "musicgen-large-smoke")
+SERVE_FAMILY = dict(batch=2, prompt=72, steps=8, seed=0)
+# 16b: falcon-mamba-7b at its published width and depth through
+# ServeEngine.generate, as phase 9 serves llama3.2-3b
+SERVE_MAMBA = dict(arch="falcon-mamba-7b", batch=8, prompt=2048,
+                   new_tokens=32, seed=0)
+# 16c: mixtral-8x22b at full width cut to 2 layers, bf16, the flash kernel
+# (prompts past the window of 4096: the prefill seeds the ring buffer and
+# the kernel takes its windowed route)
+MIXTRAL_ARCH = "mixtral-8x22b-2l"
+SERVE_MIXTRAL = dict(arch=MIXTRAL_ARCH, batch=2, prompt=5120, new_tokens=16,
+                     seed=0)
+# the kernel on its serving inputs (layer 0's q, k, v: (2, 48, 5120, 128)
+# bf16, window 4096) is held to its plain version at FLASH_BF16_TOL.  End
+# to end the bf16 logits of the flash route and of attn_impl="full" are
+# two roundings of one f32 function: each attention output rounds to bf16
+# once, and the two roundings differ by an ulp in a share of the outputs
+# (0.26 % of the hidden state after layer 0 in a bf16 mixtral of d 1024
+# on the CPU, the kernel's plain version against "full"), which the MoE
+# layers carry to 1.6 % after two layers; so they are not held to each
+# other at the 16-bit flash tolerance (reported: SERVE_MIXTRAL_TOL).
+# Each is held instead against the same model in f32 (the engine's bf16
+# weights in f32, attn_impl="full", TF32 off): the flash route's largest
+# error at most SERVE_MIXTRAL_ERR_RATIO times the full route's (0.98-1.0
+# on the CPU with the plain version), unless a token routes to another
+# expert between the runs (then reported, as in 16a)
+SERVE_MIXTRAL_TOL = dict(rtol=2e-2, atol=5e-3)
+SERVE_MIXTRAL_ERR_RATIO = 1.5
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
 SERVE_SMALL = dict(arch="llama3.2-3b-smoke", batch=2, prompt=64, steps=8,
@@ -2341,6 +2404,372 @@ def phase_moe_layer() -> dict:
     return out
 
 
+def _register_phase16_configs() -> None:
+    """The cut config of phase 16c, registered with the port's own
+    ``register`` (16a's gather variant is phase 15's)."""
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    register(dataclasses.replace(get_config("mixtral-8x22b"),
+                                 name=MIXTRAL_ARCH, n_layers=2,
+                                 attn_impl="pallas"))
+
+
+class _RouteSpy:
+    """Records the top-k expert choices of every MoE call the serving
+    path makes (``models.transformer.moe_forward``), on the CPU."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as T
+        self.T, self.calls = T, []
+
+    def __enter__(self):
+        moe = self.T.moe_forward
+
+        def spy(p, x, cfg):
+            logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
+            self.calls.append(torch.topk(torch.softmax(logits, -1),
+                                         cfg.moe_top_k, -1)[1].cpu())
+            return moe(p, x, cfg)
+        self._moe = moe
+        self.T.moe_forward = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.T.moe_forward = self._moe
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+def _family_teacher_forced(cfg, params, pre, steps, dev, spy) -> tuple:
+    """Prefill logits and the teacher-forced decode logits of ``cfg`` on
+    ``dev`` (f32 on the CPU), and each of those steps' MoE choices."""
+    from repro_torch.models import transformer as T
+    params = {k: t.to(dev) for k, t in params.items()}
+    n_pre = cfg.n_prefix if cfg.embed_kind == "prefix" else 0
+    s = pre["embeddings" if "embeddings" in pre else "tokens"].shape[1]
+    logits_out, routes = [], []
+    with torch.inference_mode():
+        logits, caches = T.prefill(
+            params, {k: v.to(dev) for k, v in pre.items()}, cfg,
+            cache_len=n_pre + s + len(steps))
+        logits_out.append(logits.float().cpu())
+        routes.append(spy.take())
+        for i, st in enumerate(steps):
+            logits, caches = T.decode_step(
+                params, {k: v.to(dev) for k, v in st.items()}, caches,
+                n_pre + s + i, cfg)
+            logits_out.append(logits.float().cpu())
+            routes.append(spy.take())
+    return logits_out, routes
+
+
+def phase_serve_families_small() -> dict:
+    """16a: each decoding family beyond the dense token decoders, reduced()
+    in f32 with attn_impl="pallas", on the card and on the CPU from one
+    seed: the prefill logits and 8 teacher-forced decode steps agree
+    within SERVE_SMALL_TOL up to the first step where a token routes to
+    another expert (counted each step; the rest reported).  The card's
+    prefill runs the f32 flash route once per attention layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    sf = SERVE_FAMILY
+    out = {}
+    for arch in SERVE_FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+        params = T.init_params(cfg, torch.Generator().manual_seed(sf["seed"]))
+        g = torch.Generator().manual_seed(1)
+        b, s, n = sf["batch"], sf["prompt"], sf["steps"]
+        if cfg.embed_kind == "embeddings":
+            x = torch.randn(b, s + n, cfg.d_model, generator=g)
+            pre, key = {"embeddings": x[:, :s]}, "embeddings"
+        else:
+            x = torch.randint(0, cfg.vocab, (b, s + n), generator=g,
+                              dtype=torch.int32)
+            pre, key = {"tokens": x[:, :s]}, "tokens"
+        if cfg.embed_kind == "prefix":
+            pre["patch_embeds"] = torch.randn(b, cfg.n_prefix, cfg.d_model,
+                                              generator=g)
+        steps = [{key: x[:, s + i:s + i + 1]} for i in range(n)]
+        n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+        with _RouteSpy() as spy:
+            build.reset_launch_counts()
+            card, card_routes = _family_teacher_forced(
+                cfg, params, pre, steps, torch.device("cuda"), spy)
+            counts = build.launch_counts()
+            cpu, cpu_routes = _family_teacher_forced(
+                cfg, params, pre, steps, torch.device("cpu"), spy)
+        want = dict(NO_FLASH, adam_step=0, ef_compress=0, decompress=0,
+                    flash_attention=n_attn)
+        if counts != want:
+            raise AssertionError(f"serve-families {arch}: launch counts "
+                                 f"{counts}, expected {want}")
+        rerouted = [sum(int((a != b).any(-1).sum()) for a, b in zip(x, y))
+                    for x, y in zip(card_routes, cpu_routes)]
+        held = next((i for i, r in enumerate(rerouted) if r), len(card))
+        errs = []
+        for i, (a, c) in enumerate(zip(card, cpu)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"serve-families {arch}: non-finite "
+                                     f"logits at step {i}")
+            errs.append(float((a - c).abs().max()))
+            if i < held:
+                torch.testing.assert_close(a, c, **SERVE_SMALL_TOL)
+        if held == 0:
+            raise AssertionError(f"serve-families {arch}: a token routed "
+                                 "differently in the prefill")
+        out[arch] = dict(max_abs_err=errs, rerouted=rerouted, held=held,
+                         launches=counts)
+        log(f"[serve-families] {arch} card vs cpu: prefill + {n} "
+            f"teacher-forced decode steps, max abs err "
+            + ", ".join(f"{e:.2e}" for e in errs)
+            + f"; tokens rerouted a step {rerouted}; held at rtol/atol "
+            f"1e-4 through {held} of {len(card)} logits; launches "
+            f"flash_attention {counts['flash_attention']}")
+    return out
+
+
+def phase_serve_mamba() -> dict:
+    """16b: falcon-mamba-7b at its published width and depth through
+    ServeEngine.generate (batch 8 x 2048-token prompts, 32 greedy new
+    tokens, random weights from seed 0); launch counts read around exactly
+    the measured generate call (no kernel: the SSM has none); then one
+    prefill and one decode step under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    sv = SERVE_MAMBA
+    cfg = get_config(sv["arch"])
+    gen = torch.Generator(device="cuda").manual_seed(sv["seed"])
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in params.values())
+    eng = ServeEngine(cfg, params, device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (sv["batch"], sv["prompt"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up at the same shapes: cuBLAS handles, the allocator's pools
+    eng.generate(prompts, GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, GenerationConfig(
+        max_new_tokens=sv["new_tokens"]))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(NO_FLASH, adam_step=0, ef_compress=0, decompress=0)
+    if counts != want:
+        raise AssertionError(f"serve-mamba launch counts {counts}, "
+                             f"expected {want}")
+    tokens = out["tokens"]
+    if tuple(tokens.shape) != (sv["batch"], sv["new_tokens"]) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"serve-mamba: bad tokens {tokens.shape}")
+    with torch.inference_mode():
+        logits, _ = T.prefill(eng.params, {"tokens": prompts}, cfg)
+        finite = bool(torch.isfinite(logits).all())
+        first_same = float((logits[:, :cfg.vocab].float().argmax(-1)
+                            == tokens[:, 0]).float().mean())
+    del logits
+    if not finite:
+        raise AssertionError("serve-mamba: non-finite logits")
+    dec = out["decode_ms"]
+    med = sorted(dec)[len(dec) // 2]
+    stats = dict(
+        arch=sv["arch"], n_layers=cfg.n_layers, d_model=cfg.d_model,
+        d_inner=cfg.d_inner, n_params=n_params, batch=sv["batch"],
+        prompt=sv["prompt"], new_tokens=sv["new_tokens"], setup_s=setup_s,
+        prefill_ms=out["prefill_ms"], decode_ms=dec, decode_ms_median=med,
+        generate_wall_ms=wall_ms,
+        tokens_per_s=sv["batch"] * sv["new_tokens"] / (wall_ms / 1e3),
+        decode_tokens_per_s=sv["batch"] / (med / 1e3),
+        prefill_tokens_per_s=sv["batch"] * sv["prompt"]
+        / (out["prefill_ms"] / 1e3),
+        peak_bytes=peak, launches=counts,
+        first_token_matches_prefill_argmax=first_same)
+    log(f"[serve-mamba] {sv['arch']} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {n_params} parameters, bf16) batch {sv['batch']} x "
+        f"prompt {sv['prompt']}, {sv['new_tokens']} new tokens: prefill "
+        f"{out['prefill_ms']:.1f} ms, decode median {med:.2f} ms/step (min "
+        f"{min(dec):.2f}, max {max(dec):.2f}), generate wall {wall_ms:.1f} "
+        f"ms, {stats['tokens_per_s']:.1f} tokens/s overall, "
+        f"{stats['decode_tokens_per_s']:.1f} tokens/s in decode, peak "
+        f"memory {peak} bytes, launches {counts}, first token = the prefill "
+        f"argmax in {first_same:.3f} of rows, set-up {setup_s:.1f} s")
+    stats["profile"] = phase_serve_profile(eng, prompts)
+    del eng, prompts, out
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_serve_mixtral() -> dict:
+    """16c: mixtral-8x22b at full width, 2 layers, bf16, attn_impl="pallas",
+    through ServeEngine.generate (batch 2 x 5120-token prompts, past the
+    window of 4096; 16 greedy new tokens); launch counts read around
+    exactly the measured generate call (one windowed wgmma flash launch a
+    layer); the kernel against its plain version on layer 0's inputs; the
+    last-position prefill logits of the flash route and of
+    attn_impl="full" against the model in f32 (see SERVE_MIXTRAL_TOL),
+    with the tokens routed differently counted."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import ops as FA
+    from repro_torch.kernels.flash_attn import ref as FR
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    sv = SERVE_MIXTRAL
+    cfg = get_config(sv["arch"])
+    gen = torch.Generator(device="cuda").manual_seed(sv["seed"])
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in params.values())
+    eng = ServeEngine(cfg, params, device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (sv["batch"], sv["prompt"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng.generate(prompts, GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, GenerationConfig(
+        max_new_tokens=sv["new_tokens"]))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(NO_FLASH, adam_step=0, ef_compress=0, decompress=0,
+                flash_attention_wgmma=cfg.n_layers)
+    if counts != want:
+        raise AssertionError(f"serve-mixtral launch counts {counts}, "
+                             f"expected {want}")
+    tokens = out["tokens"]
+    if tuple(tokens.shape) != (sv["batch"], sv["new_tokens"]) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"serve-mixtral: bad tokens {tokens.shape}")
+    P = eng.params
+    with torch.inference_mode():
+        # the kernel on layer 0's serving inputs against its plain version
+        p = T._superblock_params(P, cfg)[0]["l0"]
+        h = rms_norm(T._inputs_to_h0(P["embed"], {"tokens": prompts}, cfg,
+                                     torch.bfloat16), p["norm1"],
+                     cfg.norm_eps)
+        q, k, v = A._qkv(p["mixer"], h, cfg, torch.arange(
+            sv["prompt"], device="cuda")[None, :])
+        rep = cfg.n_heads // cfg.n_kv_heads
+        q, k, v = (t.transpose(1, 2).contiguous() for t in
+                   (q, A._repeat_kv(k, rep), A._repeat_kv(v, rep)))
+        o = FA.flash_attention(q, k, v, causal=True, window=cfg.window)
+        o_plain = FR.sdpa(q, k, v, causal=True, window=cfg.window)
+        kernel = dict(shape=list(q.shape),
+                      max_abs_err=float((o.float() - o_plain.float())
+                                        .abs().max()),
+                      atol_needed=atol_needed(o, o_plain,
+                                              FLASH_BF16_TOL["rtol"]),
+                      bitwise_share=float((o == o_plain).float().mean()))
+        torch.testing.assert_close(o.float(), o_plain.float(),
+                                   **FLASH_BF16_TOL)
+        del h, q, k, v, o, o_plain
+        torch.cuda.empty_cache()
+        full = ServeEngine(dataclasses.replace(cfg, attn_impl="full"), P,
+                           device="cuda")
+        with _RouteSpy() as spy:
+            got, caches = T.prefill(P, {"tokens": prompts}, cfg)
+            r_flash = spy.take()
+            ring = caches["l0"]["k"].shape[2]
+            del caches
+            ref, _ = T.prefill(full.params, {"tokens": prompts}, full.cfg)
+            r_full = spy.take()
+            got, ref = got[:, :cfg.vocab].float(), ref[:, :cfg.vocab].float()
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                        attn_impl="full")
+            p32 = {k_: t.float() for k_, t in P.items()}
+            del full, eng, P
+            torch.cuda.empty_cache()
+            exact, _ = T.prefill(p32, {"tokens": prompts}, cfg32)
+            r_f32 = spy.take()
+            exact = exact[:, :cfg.vocab].float()
+            del p32
+    torch.cuda.empty_cache()
+
+    def moved(a, b) -> int:
+        return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+    rerouted = dict(flash_full=moved(r_flash, r_full),
+                    flash_f32=moved(r_flash, r_f32),
+                    full_f32=moved(r_full, r_f32))
+    for name, x in (("flash", got), ("full", ref)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"serve-mixtral: non-finite {name} logits")
+    if ring != cfg.window:
+        raise AssertionError(f"serve-mixtral: KV cache of {ring} slots, "
+                             f"expected the window's {cfg.window}")
+    err_flash = float((got - exact).abs().max())
+    err_full = float((ref - exact).abs().max())
+    diff = (got - ref).abs()
+    outside = float((diff > SERVE_MIXTRAL_TOL["atol"] + SERVE_MIXTRAL_TOL[
+        "rtol"] * ref.abs()).float().mean())
+    held = rerouted["flash_f32"] == 0 and rerouted["full_f32"] == 0
+    if held and err_flash > SERVE_MIXTRAL_ERR_RATIO * err_full:
+        raise AssertionError(
+            f"serve-mixtral: the flash route's logits are {err_flash:.3e} "
+            f"from the f32 model's, the full route's {err_full:.3e}")
+    first_same = float((got.argmax(-1) == tokens[:, 0]).float().mean())
+    dec = out["decode_ms"]
+    med = sorted(dec)[len(dec) // 2]
+    stats = dict(
+        arch=sv["arch"], n_layers=cfg.n_layers, n_params=n_params,
+        batch=sv["batch"], prompt=sv["prompt"], new_tokens=sv["new_tokens"],
+        window=cfg.window, setup_s=setup_s, prefill_ms=out["prefill_ms"],
+        decode_ms=dec, decode_ms_median=med, generate_wall_ms=wall_ms,
+        prefill_tokens_per_s=sv["batch"] * sv["prompt"]
+        / (out["prefill_ms"] / 1e3),
+        decode_tokens_per_s=sv["batch"] / (med / 1e3), peak_bytes=peak,
+        launches=counts, kernel_vs_plain=kernel,
+        logits_err_flash_vs_f32=err_flash, logits_err_full_vs_f32=err_full,
+        logits_flash_vs_full_max_abs=float(diff.max()),
+        logits_flash_vs_full_share_outside_tol=outside,
+        logits_abs_max=float(exact.abs().max()), rerouted=rerouted,
+        held_against_f32=held, first_token_matches_prefill_argmax=first_same)
+    log(f"[serve-mixtral] {sv['arch']} (d {cfg.d_model}, {cfg.n_experts} "
+        f"experts top-{cfg.moe_top_k}, window {cfg.window}, {n_params} "
+        f"parameters, bf16) batch {sv['batch']} x prompt {sv['prompt']}, "
+        f"{sv['new_tokens']} new tokens: prefill {out['prefill_ms']:.1f} ms, "
+        f"decode median {med:.2f} ms/step (min {min(dec):.2f}, max "
+        f"{max(dec):.2f}), generate wall {wall_ms:.1f} ms, peak memory "
+        f"{peak} bytes, launches {counts}, set-up {setup_s:.1f} s")
+    log(f"[serve-mixtral] kernel vs plain at {kernel['shape']} window "
+        f"{cfg.window}: max abs err {kernel['max_abs_err']:.3e}, least atol "
+        f"at rtol 2e-2 {kernel['atol_needed']:.3e}, "
+        f"{100 * kernel['bitwise_share']:.1f} % bitwise; last-position "
+        f"logits (|f32| up to {stats['logits_abs_max']:.3f}) from the f32 "
+        f"model's: flash {err_flash:.3e}, full {err_full:.3e} ("
+        + ("held: ratio at most " + str(SERVE_MIXTRAL_ERR_RATIO) if held
+           else "not held: a token rerouted")
+        + f"); flash vs full max abs {float(diff.max()):.3e}, "
+        f"{100 * outside:.1f} % of them outside rtol 2e-2 / atol 5e-3; "
+        f"tokens rerouted {rerouted}; first token = the prefill argmax in "
+        f"{first_same:.3f} of rows")
+    del got, ref, exact, out, prompts
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -2391,6 +2820,10 @@ def main() -> int:
     families = {"small": phase_families_small()}
     families["main"] = phase_families_main()
     families["moe_layer"] = phase_moe_layer()
+    _register_phase16_configs()
+    serve_families = {"small": phase_serve_families_small()}
+    serve_families["mamba"] = phase_serve_mamba()
+    serve_families["mixtral"] = phase_serve_mixtral()
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -2414,6 +2847,10 @@ def main() -> int:
         e["launches_plan"] = plan["launches"][e["name"]]
         e["launches_obs"] = obs["a"]["launches"][e["name"]]
         e["launches_families"] = families["main"]["launches"][e["name"]]
+        e["launches_serve_mamba"] = \
+            serve_families["mamba"]["launches"][e["name"]]
+        e["launches_serve_mixtral"] = \
+            serve_families["mixtral"]["launches"][e["name"]]
     print(json.dumps({"main_path": stats}))
     print(json.dumps({"family_path": {k: v for k, v in family.items()
                                       if k != "pipeline"}}))
@@ -2425,6 +2862,7 @@ def main() -> int:
     print(json.dumps({"plan": plan}))
     print(json.dumps({"obs": obs}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"serve_families": serve_families}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

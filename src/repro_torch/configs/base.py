@@ -7,7 +7,8 @@ derived sizes (``d_inner``, ``dt_rank``, ``padded_vocab``,
 layout, ``is_moe_layer``), ``param_count`` and ``active_param_count``
 (the MoE rule), ``reduced()`` (the CPU smoke variant, derived exactly as
 the reference derives it),
-``InputShape``, ``OptimSpec`` and the training recipes of the optimizer
+``supports_long_decode``, ``InputShape`` and the reference's ``SHAPES``,
+``OptimSpec`` and the training recipes of the optimizer
 family, with the reference's ``onebit_adam_autotopo`` and
 ``onebit_adam_pipelined``, whose ``topology`` / ``pipeline`` the plan
 tuner resolves.
@@ -29,6 +30,14 @@ class InputShape:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +69,7 @@ class ArchConfig:
     causal: bool = True            # False for encoder-only (BERT)
     mlp_kind: str = "swiglu"       # "swiglu" | "gelu"
     # input modality: "tokens" (LM), "embeddings" (audio stub: frames are
-    # given), "prefix" (VLM stub: patch-embedding prefix + text tokens);
-    # the port serves "tokens" only
+    # given), "prefix" (VLM stub: patch-embedding prefix + text tokens)
     embed_kind: str = "tokens"
     n_prefix: int = 256            # VLM: patch embeddings per sample
     norm_eps: float = 1e-5
@@ -69,8 +77,8 @@ class ArchConfig:
     remat: bool = True             # activation-checkpoint each block
     attn_chunk: int = 2048         # KV chunk of the reference's online softmax
     # "full" (plain masked softmax), "pallas" (the flash-attention kernel,
-    # forward only), "chunked" (not ported), "auto" (chunked past
-    # 4 * attn_chunk for causal models, else full)
+    # forward only), "chunked" (online softmax over KV chunks), "auto"
+    # (chunked past 4 * attn_chunk for causal models, else full)
     attn_impl: str = "auto"
     source: str = ""               # citation
 
@@ -116,6 +124,12 @@ class ArchConfig:
     def is_moe_layer(self, i: int) -> bool:
         return self.n_experts > 0 and \
             (i % self.moe_every) == self.moe_every - 1
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """True if decode over a 500k context is sub-quadratic in memory:
+        an SSM / hybrid state or a sliding window bounds the live KV."""
+        return self.family in ("ssm", "hybrid") or self.window is not None
 
     def param_count(self, tp: int = 1) -> int:
         """Parameter count of ``init_params`` (padding included)."""

@@ -7,21 +7,27 @@ Prefill (``attn_forward``) takes one of the reference's paths by
   * ``"pallas"``: the flash-attention kernel (``kernels/flash_attn``) on
     (B, H, S, D) after the kv heads are repeated, forward only;
   * ``"full"``: the plain masked softmax ``_sdpa``;
-  * ``"auto"``: ``"full"``, except where the reference takes its chunked
-    online softmax (causal, S > 4 * attn_chunk), which is not ported and
-    raises;
-  * ``"chunked"``: not ported, raises.
+  * ``"chunked"``: the online softmax over KV chunks of ``attn_chunk``
+    (``_sdpa_chunked``, the flash schedule in plain torch, f32) for a
+    causal model whose length the chunk divides, else ``"full"``;
+  * ``"auto"``: ``"chunked"`` past S = 4 * attn_chunk, else ``"full"``.
 
 Decode (``decode_attn``) writes the new token's k/v into the cache in
 place (the reference returns an updated copy; the port saves the copy)
-and attends over the cache in f32.  The flash-decoding sequence sharding
-of the reference (``seq_axes``) is not ported.
+and attends over the cache in f32.  A cache may be split along the
+sequence over a group of ranks (``SeqGroup``, the reference's
+``seq_axes``; flash-decoding): only the shard that holds the new slot
+writes it, each rank attends over its own slots, and the partial softmax
+sums are combined by an all-reduce MAX of the row maxima and one SUM of
+the rescaled sums and outputs.  A windowed (ring) cache is never split.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attn import ops as fa
@@ -64,6 +70,41 @@ def _sdpa(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype), v)
 
 
+def _sdpa_chunked(q, k, v, q_offset: int, window: Optional[int],
+                  chunk: int) -> torch.Tensor:
+    """Causal online softmax over KV chunks (the flash-attention schedule
+    in plain torch, f32): O(Sq * chunk) scores at a time instead of
+    O(Sq * Skv).  q: (B,Sq,H,hd), k/v: (B,Skv,H,hd), Skv a multiple of
+    ``chunk``."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    if skv % chunk:
+        raise ValueError(f"{skv} keys do not split into chunks of {chunk}")
+    dev = q.device
+    qf = q.to(torch.float32)
+    qi = torch.arange(sq, device=dev)[:, None] + q_offset
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
+    for i in range(skv // chunk):
+        kb = k[:, i * chunk:(i + 1) * chunk].to(torch.float32)
+        vb = v[:, i * chunk:(i + 1) * chunk].to(torch.float32)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) / (hd ** 0.5)
+        kj = torch.arange(chunk, device=dev)[None, :] + i * chunk
+        msk = kj <= qi
+        if window is not None:
+            msk = msk & (kj > qi - window)
+        s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                 # (b,sq,h,hd)
+
+
 def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     """Project + rope. x: (B, S, d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
     hd = cfg.head_dim
@@ -95,10 +136,7 @@ def attn_forward(p, x: torch.Tensor, cfg: ArchConfig,
             v.transpose(1, 2).contiguous(), causal=cfg.causal,
             window=cfg.window).transpose(1, 2)
     elif use_chunked and s % cfg.attn_chunk == 0 and cfg.causal:
-        raise NotImplementedError(
-            "the chunked online-softmax prefill (reference "
-            "models/attention.py:_sdpa_chunked) is not ported (ROADMAP "
-            "Queue 1); use attn_impl='full' or 'pallas'")
+        o = _sdpa_chunked(q, k, v, 0, cfg.window, cfg.attn_chunk)
     else:
         mask = None
         if cfg.causal or cfg.window is not None:
@@ -113,51 +151,85 @@ def attn_forward(p, x: torch.Tensor, cfg: ArchConfig,
 # --- decode with KV cache -----------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqGroup:
+    """The ranks a KV cache's sequence is split over: their process group
+    (None: the default group), this rank's shard index and the count."""
+
+    group: Optional[object]
+    index: int
+    size: int
+
+
 def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int,
-                  dtype=torch.bfloat16, device="cpu"
+                  dtype=torch.bfloat16, device="cpu", seq_shards: int = 1
                   ) -> Dict[str, torch.Tensor]:
-    """Zero KV cache of one attention layer, (B, S_c, Hkv, hd) each.
-    Sliding-window archs cache only the window (a ring buffer)."""
-    s = min(seq_len, cfg.window) if cfg.window else seq_len
+    """Zero KV cache of one attention layer, (B, S_c, Hkv, hd) each (global
+    shapes).  Sliding-window archs cache only the window (a ring buffer);
+    with ``seq_shards`` > 1 the sequence is rounded up to a multiple of
+    it, to be split over that many ranks."""
+    if cfg.window:
+        s = min(seq_len, cfg.window)
+    else:
+        s = -(-seq_len // seq_shards) * seq_shards
     shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def decode_attn(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                pos: int, cfg: ArchConfig) -> torch.Tensor:
-    """One-token decode. x: (B, 1, d); cache k/v: (B, S_c, Hkv, hd).
+                pos: int, cfg: ArchConfig,
+                seq_group: Optional[SeqGroup] = None) -> torch.Tensor:
+    """One-token decode. x: (B, 1, d); cache k/v: (B, S_c, Hkv, hd), this
+    rank's shard of the sequence under ``seq_group``.
 
     ``pos`` is the absolute position of the new token (== the number of
     valid cache entries).  Writes the token's k/v into ``cache`` in place
-    and returns the layer output (B, 1, d)."""
+    (on the shard that owns the slot) and returns the layer output
+    (B, 1, d)."""
+    if cfg.window and seq_group is not None:
+        raise ValueError("a windowed (ring) KV cache is not split over the "
+                         "sequence")
     b = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k_new, v_new = _qkv(p, x, cfg, torch.full((1, 1), pos,
                                                  device=x.device))
     s_c = cache["k"].shape[1]
+    shard, n_shards = (0, 1) if seq_group is None else \
+        (seq_group.index, seq_group.size)
     if cfg.window:
         slot = pos % s_c                  # ring buffer over the window
-    elif pos < s_c:
+    elif pos < s_c * n_shards:
         slot = pos
     else:
         raise ValueError(f"decode position {pos} is past the cache's "
-                         f"{s_c} slots")
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+                         f"{s_c * n_shards} slots")
+    if slot // s_c == shard:              # only the owner shard writes
+        cache["k"][:, slot % s_c] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot % s_c] = v_new[:, 0].to(cache["v"].dtype)
 
     # q head g * n_rep + r reads kv head g, as _repeat_kv lays them out
     kc = cache["k"].to(torch.float32)
     vc = cache["v"].to(torch.float32)
     qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, hd)
     s = torch.einsum("bgrd,bkgd->bgrk", qf, kc) / (hd ** 0.5)
-    gpos = torch.arange(s_c, device=x.device)
+    gpos = torch.arange(s_c, device=x.device) + shard * s_c
     if cfg.window and pos >= s_c - 1:
         valid = torch.ones(s_c, dtype=torch.bool, device=x.device)
     else:
         valid = gpos <= pos
     s = torch.where(valid, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrk,bkgd->bgrd", w, vc)
+    if seq_group is None:
+        o = torch.einsum("bgrk,bkgd->bgrd", torch.softmax(s, dim=-1), vc)
+    else:
+        # flash-decoding: the global row max, then the rescaled partial
+        # sums and outputs summed over the shards
+        m = s.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=seq_group.group)
+        p_ = torch.exp(s - m[..., None])
+        lo = torch.cat([torch.einsum("bgrk,bkgd->bgrd", p_, vc),
+                        p_.sum(dim=-1)[..., None]], dim=-1)
+        dist.all_reduce(lo, group=seq_group.group)
+        o = lo[..., :hd] / torch.clamp(lo[..., hd:], min=1e-30)
     o = o.to(x.dtype).reshape(b, 1, hq * hd)
     return dense(o, p["wo"])

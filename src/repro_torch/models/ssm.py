@@ -1,5 +1,5 @@
-"""Mamba-1 selective-SSM block at tp=1, the training forward of
-``repro/models/ssm.py``.
+"""Mamba-1 selective-SSM block at tp=1, as ``repro/models/ssm.py``: the
+training / prefill forward and the one-token decode against its state.
 
 Parameters (d = d_model, di = d_inner, N = ssm_state, R = dt_rank):
   in_proj_x, in_proj_z (d, di)   the x and gate projections (separate leaves)
@@ -14,13 +14,20 @@ The selective scan is a loop over the sequence, in f32:
 gated by ``silu(z)``.  The decay ``exp(dt * A)`` and the input ``(dt * x)
 * B`` of every timestep are elementwise and computed before the loop, so
 each step of the loop is one fused multiply-add.  The reference's
-``f_reduce`` / ``g_copy`` collectives are identities at tp = 1; its
-decode state (``return_state``, ``init_ssm_cache``, ``decode_ssm``)
-belongs to serving, not ported.
+``f_reduce`` / ``g_copy`` collectives are identities at tp = 1.
+
+The decode state of a sequence is ``{"h": (B, di, N) f32, "conv": (B, K-1,
+di)}``: the scan's last state and the last K-1 raw (pre-conv) inputs.
+``ssm_forward(return_state=True)`` (the prefill) returns it beside the
+output; there the scan runs :data:`SCAN_CHUNK` timesteps at a time, so
+that only one chunk's decay, drive and states are held at once (a prefill
+needs the final state and each step's output, not every state).
+``decode_ssm`` advances it by one token in place.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +38,10 @@ from repro_torch.models.common import dense
 
 # the leaves whose initialisation is not N(0, 1/d_in)
 SPECIAL_LEAVES = ("A_log", "D", "conv_w", "dt_bias")
+# the leaves the reference reads in f32 whatever the compute dtype
+F32_LEAVES = ("A_log", "D", "dt_bias")
+# timesteps the prefill's scan materialises at once
+SCAN_CHUNK = 256
 
 
 def init_leaf(leaf: str, shape, generator: torch.Generator) -> torch.Tensor:
@@ -79,30 +90,97 @@ def _ssm_params(p, x_in: torch.Tensor, cfg: ArchConfig):
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                   b_mat: torch.Tensor, c_mat: torch.Tensor) -> torch.Tensor:
+                   b_mat: torch.Tensor, c_mat: torch.Tensor,
+                   chunk: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """y[t] = h[t] . C[t], h[t] = exp(dt[t] A) h[t-1] + dt[t] x[t] B[t],
-    h[-1] = 0.  x, dt: (B, S, di); a: (di, N); B, C: (B, S, N); f32."""
-    decay = torch.exp(dt[..., None] * a)                  # (B, S, di, N)
-    drive = (dt * x)[..., None] * b_mat[:, :, None, :]    # (B, S, di, N)
-    # unbind once: backward stacks the timesteps' gradients in one op
-    # (indexing each timestep would make each backward step write a
-    # zero-filled full-size gradient)
-    h = torch.zeros_like(drive[:, 0])
-    hs = []
-    for dec, drv in zip(decay.unbind(1), drive.unbind(1)):
-        h = torch.addcmul(drv, dec, h)
-        hs.append(h)
-    return torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), c_mat)
+    h[-1] = 0.  x, dt: (B, S, di); a: (di, N); B, C: (B, S, N); f32.
+
+    ``chunk``: the timesteps whose decay, drive and states are
+    materialised at once (None: the whole sequence, as training's
+    backward keeps every state anyway).  Returns y (B, S, di) and the last
+    state h[S-1] (B, di, N)."""
+    s = x.shape[1]
+    step = s if chunk is None else chunk
+    h = torch.zeros(x.shape[0], x.shape[2], a.shape[-1], dtype=x.dtype,
+                    device=x.device)
+    ys = []
+    for t0 in range(0, s, step):
+        if step < s:            # (no slice, so no slice backward, else)
+            sl = slice(t0, t0 + step)
+            xc, dtc, bc, cc = x[:, sl], dt[:, sl], b_mat[:, sl], c_mat[:, sl]
+        else:
+            xc, dtc, bc, cc = x, dt, b_mat, c_mat
+        decay = torch.exp(dtc[..., None] * a)                 # (B, s, di, N)
+        drive = (dtc * xc)[..., None] * bc[:, :, None, :]     # (B, s, di, N)
+        # unbind once: backward stacks the timesteps' gradients in one op
+        # (indexing each timestep would make each backward step write a
+        # zero-filled full-size gradient)
+        hs = []
+        for dec, drv in zip(decay.unbind(1), drive.unbind(1)):
+            h = torch.addcmul(drv, dec, h)
+            hs.append(h)
+        ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), cc))
+        del decay, drive, hs        # before the next chunk's are made
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h
 
 
-def ssm_forward(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Training forward. x: (B, S, d) -> (B, S, d)."""
+def ssm_forward(p, x: torch.Tensor, cfg: ArchConfig,
+                return_state: bool = False):
+    """Training / prefill forward. x: (B, S, d) -> (B, S, d).
+
+    ``return_state=True`` also returns the decode state ``{"h", "conv"}``
+    after the sequence (the prefill; it needs S >= ssm_conv - 1, the
+    length of the conv tail)."""
     dt_ = x.dtype
+    s, k = x.shape[1], cfg.ssm_conv
+    if return_state and s < k - 1:
+        raise ValueError(f"a prefill of {s} tokens is shorter than the conv "
+                         f"tail of {k - 1}")
     xraw = dense(x, p["in_proj_x"])                        # (B, S, di)
     z = dense(x, p["in_proj_z"])
     xi = F.silu(_causal_conv(xraw, p["conv_w"].to(dt_)))
     dt, b_mat, c_mat, a = _ssm_params(p, xi, cfg)
     xf = xi.to(torch.float32)
-    y = selective_scan(xf, dt, a, b_mat, c_mat) + xf * p["D"]
+    y, h = selective_scan(xf, dt, a, b_mat, c_mat,
+                          SCAN_CHUNK if return_state else None)
+    y = (y + xf * p["D"]).to(dt_) * F.silu(z)
+    out = dense(y, p["out_proj"])
+    if return_state:
+        return out, {"h": h, "conv": xraw[:, s - (k - 1):]}
+    return out
+
+
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                   device="cpu") -> Dict[str, torch.Tensor]:
+    """Zero decode state of one layer: h (B, di, N) f32, the conv tail
+    (B, K-1, di) in ``dtype``."""
+    di = cfg.d_inner
+    return {"h": torch.zeros(batch, di, cfg.ssm_state, dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(batch, cfg.ssm_conv - 1, di, dtype=dtype,
+                                device=device)}
+
+
+def decode_ssm(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cfg: ArchConfig) -> torch.Tensor:
+    """One-token decode. x: (B, 1, d); ``cache`` h (B, di, N), conv tail
+    (B, K-1, di).  Advances ``cache`` in place (each leaf in its own dtype)
+    and returns the layer output (B, 1, d)."""
+    dt_ = x.dtype
+    xi = dense(x[:, 0, :], p["in_proj_x"])                 # (B, di)
+    z = dense(x[:, 0, :], p["in_proj_z"])
+    # the conv over [tail, x], in the wider of the two dtypes
+    hist = torch.cat([cache["conv"], xi[:, None, :]], dim=1)
+    w = p["conv_w"].to(dt_).to(hist.dtype)                 # (K, di)
+    xi_c = F.silu(torch.einsum("bkc,kc->bc", hist, w))
+    dt, b_mat, c_mat, a = _ssm_params(p, xi_c[:, None, :], cfg)
+    dtt, bt, ct = dt[:, 0], b_mat[:, 0], c_mat[:, 0]
+    xf = xi_c.to(torch.float32)
+    h = torch.exp(dtt[..., None] * a) * cache["h"] \
+        + (dtt * xf)[..., None] * bt[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, ct) + xf * p["D"]
     y = y.to(dt_) * F.silu(z)
-    return dense(y, p["out_proj"])
+    cache["h"].copy_(h)
+    cache["conv"].copy_(hist[:, 1:])
+    return dense(y, p["out_proj"])[:, None, :]

@@ -1,8 +1,8 @@
 """The transformer: parameter layout, init, the training module and loss
 (every family at tp=1: the BERT encoder, the dense and MoE decoders, the
 Mamba-1 SSM, the Jamba hybrid, the audio and VLM input stubs), and the
-serving forward passes of the dense decoders (``prefill``,
-``init_caches``, ``decode_step``; slice 2).
+serving forward passes of every decoding family (``prefill``,
+``init_caches``, ``cache_specs``, ``decode_step``).
 
 Parameters keep the reference's shapes and order: ``(d_in, d_out)``
 weights, the per-layer leaves stacked on a leading superblock axis under
@@ -26,10 +26,15 @@ as the reference's ``jax.checkpoint`` of its scan body.
 
 The serving functions take the params as the dict from dotted path to
 tensor (``init_params``, ``convert.params_from_jax``) with the layers
-stacked on the leading axis, and return the decode caches stacked the same
-way, ``{"l0": {"k", "v"}}`` of shape (L, B, S_c, Hkv, hd), as the
-reference's ``prefill`` / ``decode_step`` do.  They take the dense
-decoders with token inputs only.
+stacked on the leading superblock axis, and return the decode caches in
+the reference's tree, each leaf stacked the same way: ``{"l{i}": {"k",
+"v"}}`` (B, S_c, Hkv, hd) for an attention layer, ``{"l{i}": {"h",
+"conv"}}`` (B, di, N) f32 and (B, K-1, di) for an SSM layer, ``i`` the
+layer's place in the superblock (a dense arch: ``{"l0": {"k", "v"}}`` of
+shape (L, B, S_c, Hkv, hd)).  ``decode_step`` advances them in place.
+Every family decodes but the encoders; the audio stub takes
+``{"embeddings"}``, the others ``{"tokens"}`` (the VLM's prefill also
+``{"patch_embeds"}``).
 """
 from __future__ import annotations
 
@@ -308,16 +313,16 @@ def vocab_parallel_xent(x: torch.Tensor, w_out: torch.Tensor,
     return loss, acc
 
 
-def _inputs_to_h0(model: Transformer, batch: Dict[str, torch.Tensor],
+def _inputs_to_h0(embed: Optional[torch.Tensor],
+                  batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                   dtype) -> torch.Tensor:
     """The modality inputs as the first hidden states (B, S, d): token
     embeddings; the given frames (audio stub); or the patch prefix
     followed by the text's embeddings (VLM stub)."""
-    kind = model.cfg.embed_kind
-    if kind == "embeddings":
+    if cfg.embed_kind == "embeddings":
         return batch["embeddings"].to(dtype)
-    txt = F.embedding(batch["tokens"].long(), model.embed).to(dtype)
-    if kind == "prefix":
+    txt = F.embedding(batch["tokens"].long(), embed).to(dtype)
+    if cfg.embed_kind == "prefix":
         return torch.cat([batch["patch_embeds"].to(dtype), txt], dim=1)
     return txt
 
@@ -331,7 +336,7 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     only."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.compute_dtype)
-    h = _inputs_to_h0(model, batch, dtype)
+    h = _inputs_to_h0(model.embed, batch, cfg, dtype)
     aux = None
     for sb in model.superblocks():
         fn = functools.partial(_superblock, sb)
@@ -361,24 +366,38 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
 Params = Dict[str, torch.Tensor]
 
 
-def _layers(params: Params, cfg: ArchConfig) -> List[Dict[str, Any]]:
-    """Per-layer views of the stacked block params:
-    ``[{"norm1", "norm2", "mixer": {...}, "ffn": {...}}, ...]``."""
-    blocks = _sub(params, "blocks.l0.")
-    return [{"norm1": blocks["norm1"][i], "norm2": blocks["norm2"][i],
-             "mixer": {k: t[i] for k, t in _sub(blocks, "mixer.").items()},
-             "ffn": {k: t[i] for k, t in _sub(blocks, "ffn.").items()}}
-            for i in range(cfg.n_layers)]
+def _superblock_params(params: Params, cfg: ArchConfig
+                       ) -> List[Dict[str, Dict[str, Any]]]:
+    """Per-superblock views of the stacked block params: ``[{"l{i}":
+    {"norm1", "norm2"?, "mixer": {...}, "ffn": {...}}}, ...]``."""
+    out = []
+    for sb in range(n_superblocks(cfg)):
+        layers = {}
+        for i in range(len(superblock_layout(cfg))):
+            leaves = _sub(params, f"blocks.l{i}.")
+            layer = {k: t[sb] for k, t in leaves.items() if "." not in k}
+            for part in ("mixer", "ffn"):
+                layer[part] = {k: t[sb] for k, t in
+                               _sub(leaves, part + ".").items()}
+            layers[f"l{i}"] = layer
+        out.append(layers)
+    return out
+
+
+def _ffn(p, h: torch.Tensor, ffn: Optional[str], cfg: ArchConfig
+         ) -> torch.Tensor:
+    """The residual FFN half of a serving layer (none for the SSM's)."""
+    if ffn is None:
+        return h
+    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
+    if ffn == "moe":
+        return h + moe_forward(p["ffn"], hn, cfg)[0]
+    return h + mlp_forward(p["ffn"], hn, cfg)
 
 
 def check_serving(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is an arch the serving path takes."""
-    if cfg.family not in ("encoder", "dense") or cfg.embed_kind != "tokens":
-        raise NotImplementedError(
-            f"serving {cfg.name!r} (family {cfg.family!r}, embed_kind "
-            f"{cfg.embed_kind!r}) is not ported yet: the MoE and SSM layers "
-            "and the embeddings/prefix inputs in prefill and decode are "
-            "ROADMAP Queue 1 item 2, 'the rest of serving'")
+    """Raise unless ``cfg`` is an arch that decodes (every family but the
+    encoders)."""
     if cfg.family == "encoder":
         raise ValueError("encoder-only archs do not decode")
 
@@ -388,65 +407,106 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     """Prefill forward: last-position logits (B, V_pad) in the compute
     dtype and the decode caches seeded from the sequence.
 
-    ``cache_len``: total KV-cache capacity (>= prompt length) so decode
-    steps have slots to append into; a windowed arch whose prompt is
-    longer than the window gets a ring buffer of the window instead, as
-    in the reference."""
+    ``cache_len``: total KV-cache capacity (>= prompt length, the prefix
+    included) so decode steps have slots to append into; a windowed arch
+    whose prompt is longer than the window gets a ring buffer of the
+    window instead, and the SSM state is fixed-size, as in the
+    reference."""
     check_serving(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
-    tokens = batch["tokens"]
-    h = F.embedding(tokens.long(), params["embed"]).to(dtype)
-    b, s = tokens.shape
-    if cfg.window and s > cfg.window:
-        s_c = cfg.window
-    else:
-        s_c = max(s, cache_len or 0)
-    shape = (cfg.n_layers, b, s_c, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=h.device),
-             "v": torch.zeros(shape, dtype=dtype, device=h.device)}
+    h = _inputs_to_h0(params.get("embed"), batch, cfg, dtype)
+    b, s = h.shape[:2]
+    layout = superblock_layout(cfg)
+    ring = bool(cfg.window) and s > cfg.window
+    s_c = cfg.window if ring else max(s, cache_len or 0)
+    caches = init_caches(cfg, b, s_c, dtype, h.device)
     eps = cfg.norm_eps
-    for i, p in enumerate(_layers(params, cfg)):
-        y, (k, v) = attn_forward(p["mixer"], rms_norm(h, p["norm1"], eps),
-                                 cfg, return_kv=True)
-        if cfg.window and s > cfg.window:
-            slots = torch.arange(s - s_c, s, device=h.device) % s_c
-            cache["k"][i][:, slots] = k[:, s - s_c:]
-            cache["v"][i][:, slots] = v[:, s - s_c:]
-        else:
-            cache["k"][i][:, :s] = k
-            cache["v"][i][:, :s] = v
-        h = h + y
-        h = h + mlp_forward(p["ffn"], rms_norm(h, p["norm2"], eps), cfg)
-    h = rms_norm(h, params["norm_f"], eps)
-    logits = dense(h[:, -1, :], params["w_out"])
-    return logits, {"l0": cache}
+    for sb, layers in enumerate(_superblock_params(params, cfg)):
+        for i, (mx, ff) in enumerate(layout):
+            p, c = layers[f"l{i}"], caches[f"l{i}"]
+            hn = rms_norm(h, p["norm1"], eps)
+            if mx == "attn":
+                y, (k, v) = attn_forward(p["mixer"], hn, cfg, return_kv=True)
+                if ring:
+                    w = cfg.window
+                    slots = torch.arange(s - w, s, device=h.device) % w
+                    c["k"][sb][:, slots] = k[:, s - w:]
+                    c["v"][sb][:, slots] = v[:, s - w:]
+                else:
+                    c["k"][sb][:, :s] = k
+                    c["v"][sb][:, :s] = v
+            else:
+                y, st = S.ssm_forward(p["mixer"], hn, cfg, return_state=True)
+                c["h"][sb].copy_(st["h"])
+                c["conv"][sb].copy_(st["conv"])
+            h = _ffn(p, h + y, ff, cfg)
+    h = rms_norm(h[:, -1, :], params["norm_f"], eps)
+    return dense(h, params["w_out"]), caches
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
-                dtype=torch.bfloat16, device="cpu") -> Any:
-    """Zero decode caches, stacked over the layers."""
-    one = A.init_kv_cache(cfg, batch, seq_len, dtype, device)
-    return {"l0": {k: t[None].repeat(cfg.n_layers, *([1] * t.ndim))
-                   for k, t in one.items()}}
+                dtype=torch.bfloat16, device="cpu", seq_shards: int = 1
+                ) -> Any:
+    """Zero decode caches in the reference's tree, each leaf stacked over
+    the superblocks (global shapes; ``seq_shards`` as
+    ``attention.init_kv_cache``)."""
+    nsb = n_superblocks(cfg)
+    out = {}
+    for i, (mx, _) in enumerate(superblock_layout(cfg)):
+        one = A.init_kv_cache(cfg, batch, seq_len, dtype, "meta",
+                              seq_shards) if mx == "attn" else \
+            S.init_ssm_cache(cfg, batch, dtype, "meta")
+        out[f"l{i}"] = {k: torch.zeros((nsb,) + tuple(t.shape),
+                                       dtype=t.dtype, device=device)
+                        for k, t in one.items()}
+    return out
+
+
+def cache_specs(cfg: ArchConfig, seq_sharded: bool) -> Any:
+    """The dim of each cache leaf that is split over the dp ranks, in the
+    tree of :func:`init_caches` (None: replicated), as the reference's
+    ``cache_specs`` at tp = 1: the batch (dim 1) of every leaf; the
+    sequence (dim 2) of a full-attention KV cache under ``seq_sharded``,
+    where the windowed caches and the SSM state are replicated."""
+    out = {}
+    for i, (mx, _) in enumerate(superblock_layout(cfg)):
+        if mx == "attn":
+            dim = (None if cfg.window else 2) if seq_sharded else 1
+            out[f"l{i}"] = {"k": dim, "v": dim}
+        else:
+            dim = None if seq_sharded else 1
+            out[f"l{i}"] = {"h": dim, "conv": dim}
+    return out
 
 
 def decode_step(params: Params, batch: Dict[str, torch.Tensor], caches: Any,
-                pos: int, cfg: ArchConfig) -> Tuple[torch.Tensor, Any]:
+                pos: int, cfg: ArchConfig,
+                seq_group: Optional[A.SeqGroup] = None
+                ) -> Tuple[torch.Tensor, Any]:
     """One decode step: one new token per sequence against the caches.
 
-    batch: {"tokens": (B, 1)}; ``pos`` is the new token's absolute
-    position.  Updates ``caches`` in place and returns (logits (B, V_pad),
+    batch: {"tokens": (B, 1)} or {"embeddings": (B, 1, d)}; ``pos`` is the
+    new token's absolute position; ``seq_group``: the ranks the
+    full-attention KV caches are split over along the sequence (None: not
+    split).  Updates ``caches`` in place and returns (logits (B, V_pad),
     caches)."""
     check_serving(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
-    h = F.embedding(batch["tokens"].long(), params["embed"]).to(dtype)
-    cache = caches["l0"]
+    if cfg.embed_kind == "embeddings":
+        h = batch["embeddings"].to(dtype)
+    else:
+        h = F.embedding(batch["tokens"].long(), params["embed"]).to(dtype)
+    layout = superblock_layout(cfg)
     eps = cfg.norm_eps
-    for i, p in enumerate(_layers(params, cfg)):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        h = h + A.decode_attn(p["mixer"], rms_norm(h, p["norm1"], eps),
-                              layer_cache, pos, cfg)
-        h = h + mlp_forward(p["ffn"], rms_norm(h, p["norm2"], eps), cfg)
-    h = rms_norm(h, params["norm_f"], eps)
-    logits = dense(h[:, -1, :], params["w_out"])
-    return logits, caches
+    for sb, layers in enumerate(_superblock_params(params, cfg)):
+        for i, (mx, ff) in enumerate(layout):
+            p = layers[f"l{i}"]
+            c = {k: t[sb] for k, t in caches[f"l{i}"].items()}
+            hn = rms_norm(h, p["norm1"], eps)
+            if mx == "attn":
+                y = A.decode_attn(p["mixer"], hn, c, pos, cfg, seq_group)
+            else:
+                y = S.decode_ssm(p["mixer"], hn, c, cfg)
+            h = _ffn(p, h + y, ff, cfg)
+    h = rms_norm(h[:, -1, :], params["norm_f"], eps)
+    return dense(h, params["w_out"]), caches

@@ -1,8 +1,11 @@
-"""Batched serving engine: prefill + autoregressive decode with KV caches,
-temperature / top-k sampling and per-sequence stop handling, as
+"""Batched serving engine: prefill + autoregressive decode with KV / SSM
+caches, temperature / top-k sampling and per-sequence stop handling, as
 ``repro/serve/engine.py`` on one device.
 
-The engine drives ``models.transformer.prefill`` / ``decode_step``; with
+The engine drives ``models.transformer.prefill`` / ``decode_step`` for
+every decoding family with token prompts (the VLM stub with its patch
+prefix); the audio stub, whose inputs are frames, is driven through
+``decode_step`` directly, as in the reference.  With
 ``attn_impl="pallas"`` the prefill's attention runs the flash-attention
 kernel.  On the card everything runs on the card: ``device="cuda"``
 without one raises, and nothing falls back to the CPU.
@@ -18,6 +21,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.ssm import F32_LEAVES
+
+# leaves the reference reads in f32 whatever the compute dtype: the norm
+# scales, the MoE router and the SSM's decay, skip and dt bias
+_KEEP_F32 = ("norm1", "norm2", "norm_f", "router") + F32_LEAVES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,25 +83,33 @@ class ServeEngine:
 
     The weight matrices and the embedding table are cast to the compute
     dtype once, here, instead of at every call: that gives the same
-    numbers as the reference's per-call ``.astype(dtype)``.  The norm
-    scales stay f32, as the reference reads them.
+    numbers as the reference's per-call ``.astype(dtype)``.  The leaves
+    the reference reads uncast stay f32: the norm scales, the MoE router,
+    and the SSM's ``A_log``, ``D`` and ``dt_bias``.
     """
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, torch.Tensor],
                  device: str = "cuda"):
         T.check_serving(cfg)
+        if cfg.embed_kind not in ("tokens", "prefix"):
+            raise ValueError(
+                f"the engine serves token prompts; {cfg.name!r} takes "
+                f"{cfg.embed_kind!r} (drive models.transformer.decode_step "
+                "directly)")
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = getattr(torch, cfg.compute_dtype)
         self.params = {
             path: t.to(self.device, torch.float32
-                       if path.rsplit(".", 1)[-1].startswith("norm")
-                       else dtype)
+                       if path.rsplit(".", 1)[-1] in _KEEP_F32 else dtype)
             for path, t in params.items()}
 
     def generate(self, prompts: torch.Tensor, gc: GenerationConfig,
-                 generator: Optional[torch.Generator] = None) -> dict:
-        """prompts: (B, S) int (equal-length prompts, no padding).
+                 generator: Optional[torch.Generator] = None,
+                 prefix_embeds: Optional[torch.Tensor] = None) -> dict:
+        """prompts: (B, S) int (equal-length prompts, no padding);
+        ``prefix_embeds`` (B, n_prefix, d): the VLM's patch prefix, which
+        the prompt follows.
 
         Returns {"tokens": (B, max_new_tokens) int32, "n_valid": (B,)
         int32, "prefill_ms": time to the first token, "decode_ms": one
@@ -103,13 +119,23 @@ class ServeEngine:
         cfg = self.cfg
         prompts = prompts.to(self.device)
         b, s = prompts.shape
+        batch = {"tokens": prompts}
+        n_pre = 0
+        if cfg.embed_kind == "prefix":
+            n_pre = cfg.n_prefix
+            if prefix_embeds is None or tuple(prefix_embeds.shape) != (
+                    b, n_pre, cfg.d_model):
+                raise ValueError(f"{cfg.name!r} needs prefix_embeds of "
+                                 f"shape {(b, n_pre, cfg.d_model)}")
+            batch["patch_embeds"] = prefix_embeds.to(self.device)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         clock = _Clock(self.device)
         with torch.inference_mode():
             clock.mark()
-            logits, caches = T.prefill(self.params, {"tokens": prompts}, cfg,
-                                       cache_len=s + gc.max_new_tokens)
+            logits, caches = T.prefill(self.params, batch, cfg,
+                                       cache_len=n_pre + s
+                                       + gc.max_new_tokens)
             tok = _sample(logits, generator, gc, cfg.vocab)
             clock.mark()
             out = [tok]
@@ -118,8 +144,8 @@ class ServeEngine:
                 alive = alive & (tok != gc.eos_id)
             for i in range(gc.max_new_tokens - 1):
                 logits, caches = T.decode_step(
-                    self.params, {"tokens": tok[:, None]}, caches, s + i,
-                    cfg)
+                    self.params, {"tokens": tok[:, None]}, caches,
+                    n_pre + s + i, cfg)
                 nxt = _sample(logits, generator, gc, cfg.vocab)
                 if gc.eos_id is not None:
                     nxt = torch.where(alive, nxt, gc.eos_id).to(torch.int32)

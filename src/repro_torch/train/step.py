@@ -45,6 +45,10 @@ the same order.  The rest of the wavefront runs after backward.  It
 applies to a compressed-stage step with ``sync=True`` and more than one
 bucket (:func:`overlap_applies`); every other step takes the serial
 path, with the same numerics.
+
+``make_serve_step`` is the serving side: a prefill or decode step over
+the dp mesh (batch-sharded, or seq-sharded flash-decoding for a batch
+smaller than the mesh), as the reference's.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.convert import flat_from_params
 from repro_torch.core import comm
 from repro_torch.core.compression import padded_length
@@ -380,3 +384,89 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
             v_l1 = v_l1 / comm.axis_size(all_axes)
     out["v_l1"] = v_l1
     return out
+
+
+# --------------------------------------------------------------------------
+# serving steps
+# --------------------------------------------------------------------------
+
+def make_serve_step(cfg: ArchConfig, mesh, shape: InputShape,
+                    device: str = "cuda"):
+    """This rank's prefill or decode step for ``shape`` on the dp mesh
+    ``mesh`` (a ``launch.mesh.DpMesh``), as the reference's
+    ``make_serve_step`` at tp = 1.
+
+    Every rank is given the same global batch and takes its part of it:
+    prefill ``step(params, batch) -> logits`` and decode ``step(params,
+    batch, caches, pos) -> (logits, caches)`` split the batch over the dp
+    ranks and return this rank's rows.  A decode batch smaller than the
+    rank count (``long_500k``: one sequence) is ``seq_sharded``: every
+    rank takes the whole batch, the full-attention KV caches are split
+    along the sequence and combined flash-decoding style over the mesh's
+    dp group (``attention.SeqGroup``); the SSM states and the windowed
+    ring caches are replicated.  ``step.cache_specs`` is the split dim of
+    each cache leaf (``transformer.cache_specs``) and
+    ``step.init_caches(batch=None, dtype=torch.bfloat16)`` this rank's
+    slice of the reference's global zero caches, on the step's device
+    (``cuda`` unless the caller asks for ``cpu``)."""
+    from repro_torch.launch.train import resolve_device
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import SeqGroup
+    if shape.kind not in ("prefill", "decode"):
+        raise ValueError(f"a serve step is a prefill or a decode, not "
+                         f"{shape.kind!r}")
+    T.check_serving(cfg)
+    dev = resolve_device(device)
+    n_dp = mesh.n_dp
+    group = mesh.groups.get(tuple(mesh.axes)) if n_dp > 1 else None
+    rank = dist.get_rank(group) if n_dp > 1 else 0
+    seq_sharded = shape.kind == "decode" and shape.global_batch < n_dp
+
+    def split(n: int, what: str) -> int:
+        if n % n_dp:
+            raise ValueError(f"{what} of {n} does not split over {n_dp} dp "
+                             "ranks")
+        return n // n_dp
+
+    def local(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if seq_sharded:
+            return {k: v.to(dev) for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            per = split(v.shape[0], "a batch")
+            out[k] = v[rank * per:(rank + 1) * per].to(dev)
+        return out
+
+    if shape.kind == "prefill":
+        def serve_step(params, batch):
+            with torch.inference_mode():
+                return T.prefill(params, local(batch), cfg)[0]
+        serve_step.seq_sharded = False
+        return serve_step
+
+    seq_group = SeqGroup(group, rank, n_dp) \
+        if seq_sharded and not cfg.window else None
+    specs = T.cache_specs(cfg, seq_sharded)
+
+    def serve_step(params, batch, caches, pos):
+        with torch.inference_mode():
+            return T.decode_step(params, local(batch), caches, int(pos), cfg,
+                                 seq_group)
+
+    def init_caches(batch: Optional[int] = None, dtype=torch.bfloat16):
+        full = T.init_caches(cfg, batch or shape.global_batch, shape.seq_len,
+                             dtype, "meta", n_dp if seq_sharded else 1)
+        out = {}
+        for name, leaves in full.items():
+            out[name] = {}
+            for k, t in leaves.items():
+                shp, dim = list(t.shape), specs[name][k]
+                if dim is not None:
+                    shp[dim] = split(shp[dim], f"cache dim {dim}")
+                out[name][k] = torch.zeros(shp, dtype=t.dtype, device=dev)
+        return out
+
+    serve_step.seq_sharded = seq_sharded
+    serve_step.cache_specs = specs
+    serve_step.init_caches = init_caches
+    return serve_step

@@ -829,3 +829,46 @@ def test_nccl_obs_profile_and_drift(card, tmp_path):
               f"{p['comm_fraction']:.4f}, {p['n_cells']} cells; drift "
               + ", ".join(f"{x['op_kind']}~{x['tier']} x{x['ratio']:.2f}"
                           for x in drift))
+
+
+def test_nccl_seq_sharded_decode_matches_one_card(card, tmp_path):
+    """Seq-sharded (flash-decoding) decode over NCCL on 4 cards:
+    jamba-smoke in f32, B 1, S 64 (16 slots a card), steps at positions
+    0-4 and 14-17 (the owner shard moves from card 0 to card 1), through
+    ``make_serve_step``; every card's logits equal one card's unsharded
+    decode at 2e-4 (the tolerance of the reference's seq-sharded test)."""
+    import torch.multiprocessing as mp
+    import _torch_serve_worker as worker
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import DpMesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.train.step import make_serve_step
+    _four_cards()
+    arch = "jamba-1.5-large-398b-smoke"
+    cfg = get_config(arch)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0))
+    case = dict(arch=arch, dtype="float32", batch=1, seq=64,
+                positions=[0, 1, 2, 3, 4, 14, 15, 16, 17])
+    tokens = np.random.default_rng(8).integers(
+        0, cfg.vocab, (1, len(case["positions"]))).astype(np.int32)
+    worker.write_case(tmp_path, case, params, tokens)
+    mp.start_processes(worker.decode_main, args=(4, str(tmp_path), "nccl"),
+                       nprocs=4, start_method="spawn")
+    ranks = [np.load(tmp_path / f"decode_nccl{r}.npz") for r in range(4)]
+    step = make_serve_step(cfg, DpMesh(axes=("dp",), sizes=(1,), groups={}),
+                           InputShape("d", 64, 1, "decode"), device="cuda")
+    caches = step.init_caches(dtype=torch.float32)
+    on_card = {k: v.to(card) for k, v in params.items()}
+    assert all(bool(r["seq_sharded"]) for r in ranks)
+    err = 0.0
+    for i, pos in enumerate(case["positions"]):
+        want, caches = step(on_card, {"tokens": torch.from_numpy(
+            tokens[:, i:i + 1])}, caches, pos)
+        want = want.float().cpu().numpy()
+        for r in ranks:
+            np.testing.assert_allclose(r[f"s{i}"], want, rtol=2e-4,
+                                       atol=2e-4)
+            err = max(err, float(np.abs(r[f"s{i}"] - want).max()))
+    print(f"[nccl4] seq-sharded decode, 4 cards vs one: "
+          f"{len(case['positions'])} steps, max abs err {err:.3e}")

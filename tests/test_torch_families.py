@@ -465,13 +465,17 @@ def test_model_math_matches_reference(arch):
         JMM.active_params_no_embed(jcfg, 1)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b-smoke",
-                                  "falcon-mamba-7b-smoke",
-                                  "musicgen-large-smoke"])
-def test_serving_refuses_unported_families(arch):
+@pytest.mark.parametrize("arch,match", [
+    ("bert-base-smoke", "encoder"), ("bert-large-smoke", "encoder"),
+    ("musicgen-large-smoke", "token prompts")])
+def test_engine_refuses_encoders_and_the_audio_stub(arch, match):
+    """The engine serves every decoding family with token prompts; an
+    encoder does not decode, and the audio stub's frames are driven
+    through ``decode_step`` directly (tests/test_torch_serve_families.py
+    serves the rest)."""
     cfg = get_config(arch)
     params = TT.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="rest of serving"):
+    with pytest.raises(ValueError, match=match):
         ServeEngine(cfg, params, device="cpu")
 
 

@@ -164,14 +164,6 @@ def test_cpu_generate_launches_no_kernel(params):
                                      "flash_attention_wide": 0}
 
 
-def test_chunked_prefill_is_not_ported(params):
-    _, tparams = params
-    cfg = dataclasses.replace(get_config(ARCH), attn_impl="chunked")
-    with pytest.raises(NotImplementedError, match="chunked"):
-        TT.prefill(tparams, {"tokens": torch.zeros(1, 64, dtype=torch.int32)},
-                   cfg)
-
-
 @pytest.mark.parametrize("impl", ["pallas", "full"])
 def test_windowed_prefill_and_decode_match_reference(params, impl):
     """A sliding window of 16 under a 32-token prompt: the prefill seeds a
