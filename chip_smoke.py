@@ -209,16 +209,41 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                attn_impl="full" each against the model in f32 (see
                SERVE_MIXTRAL_TOL).  Prints the ``{"serve_families":
                {...}}`` line.
+ 17. vision  — the paper's ResNet (Sec. 7.2) and DCGAN (Sec. 7.3) claims
+               and the benchmark harness, in f32 with TF32 off.  17a: the
+               reference-size ResNet (widths (16, 32, 64), 16 x 16, batch
+               64, block 256) and DCGAN (batch 64, block 64) on the card
+               and on the CPU from one seed, 4 onebit steps with T_w 2: the
+               losses through step 2 within SMALL_LOSS_RTOL, the first
+               compressed payload's sign bits (the kernel on the card) at
+               most FAMILIES_SIGN_FLIP_CEILING apart from the CPU's state;
+               the later losses and the free-running payloads' sign bits
+               reported.  17b: ``benchmarks.run.ALL``'s
+               ``resnet_convergence``, ``dcgan_convergence`` and
+               ``kernel_micro`` on the card, launch counts set to 0 before
+               each and read after (each must launch ``ef_compress`` and
+               ``decompress``; a non-finite number raises), verdicts
+               logged PASS or FAIL with their seconds; their ``--json``
+               ledger written and read back by ``load_ledger``.  17c: the
+               paper's CIFAR shape, ResNet-18's stage widths (64, 128,
+               256, 512) at 32 x 32, batch 128: adam and onebit, 150 steps,
+               T_w 40: adam's losses all finite, onebit's finite up to
+               VISION_CIFAR's ``onebit_nonfinite_at`` and non-finite from
+               it on (both raise otherwise); step ms (onebit's over its
+               finite and its non-finite steps apart), the losses around
+               the switch, last-10 losses, peak memory, launches.
+               17d: ``overlap_check`` on one card prints its SKIP.  Prints
+               the ``{"vision": {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
 phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
 phase 12, the sweep and the auto run in phase 13, the observed run in
 phase 14a, each card run of phase 15a and the full-width run of 15b, each
-card run of phase 16a and the generate calls of 16b and 16c) and read just
-after it.  It prints the ``{"kernels": [...]}``
-line, the card line, and as its last line ``{"ok": true, "device":
-{...}}``.
+card run of phase 16a and the generate calls of 16b and 16c, each harness
+entry of 17b and each run of 17c) and read just after it.  It prints the
+``{"kernels": [...]}`` line, the card line, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -414,6 +439,27 @@ SERVE_MIXTRAL = dict(arch=MIXTRAL_ARCH, batch=2, prompt=5120, new_tokens=16,
 # expert between the runs (then reported, as in 16a)
 SERVE_MIXTRAL_TOL = dict(rtol=2e-2, atol=5e-3)
 SERVE_MIXTRAL_ERR_RATIO = 1.5
+# phase 17: the paper's ResNet (Sec. 7.2) and DCGAN (Sec. 7.3) claims and
+# the benchmark harness.  17a: the reference-size nets card against CPU,
+# 4 onebit steps with T_w 2; the losses of the warmup steps 0-1 (and the
+# one after them, taken before any compressed update) within
+# SMALL_LOSS_RTOL (cuDNN's convs and the CPU's sum in other orders; Adam's
+# first step turns ULP differences of near-zero gradients into update
+# differences); the first compressed payload's sign bits at most
+# FAMILIES_SIGN_FLIP_CEILING apart, from the CPU's state (phase 15a's
+# rule, for its reason)
+VISION_SMALL = dict(steps=4, warmup=2)
+# 17b: the harness entries on the card; each launches both 1-bit kernels
+VISION_CLAIMS = ("resnet_convergence", "dcgan_convergence", "kernel_micro")
+# 17c: the paper's CIFAR shape, ResNet-18's stage widths at 32 x 32 (the
+# reference's net keeps one block a stage), batch 128, 150 steps, T_w 40.
+# Adam stays finite; 1-bit Adam's loss is non-finite from step 43 on: the
+# weights of ReLU channels dead through the warmup end it with v = 0, and
+# the first compressed update moves them by lr * m_bar / eps (the
+# reference does the same at this shape, tests/torch_cifar_divergence.py)
+VISION_CIFAR = dict(widths=(64, 128, 256, 512), size=32, batch=128,
+                    steps=150, onebit_nonfinite_at=43)
+VISION_BUDGET_S = 60.0
 SERVE = dict(arch="llama3.2-3b", batch=8, prompt=2048, new_tokens=32,
              seed=0)
 SERVE_SMALL = dict(arch="llama3.2-3b-smoke", batch=2, prompt=64, steps=8,
@@ -2770,6 +2816,265 @@ def phase_serve_mixtral() -> dict:
     return stats
 
 
+def _signs_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Sign bits that differ between two packed payloads."""
+    return int(np.unpackbits((a.cpu() ^ b.cpu()).numpy()).sum())
+
+
+def _pack(buf: torch.Tensor, block: int) -> torch.Tensor:
+    """The packed signs of a payload (the kernel on the card)."""
+    from repro_torch.core.compression import compress_onebit
+    return compress_onebit(buf, block)[0].cpu()
+
+
+def _vision_resnet_small() -> dict:
+    """17a for the ResNet: the same 4 onebit steps on the card and on the
+    CPU from seed 1's weights and the port's stream."""
+    from repro_torch.benchmarks import resnet_convergence as RC
+    from repro_torch.models.resnet import init_resnet
+    params = init_resnet(torch.Generator().manual_seed(1))
+    b1, tw = 0.9, VISION_SMALL["warmup"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        x, d, shapes = RC.flat_problem({k: v.to(dev)
+                                        for k, v in params.items()})
+        st, update = RC.make_update("onebit", x.shape[0], dev, tw)
+        losses, pays, snap = [], [], None
+        for t in range(VISION_SMALL["steps"]):
+            if t == tw:
+                snap = (x.cpu(), st.m.cpu(), st.worker_err.cpu())
+            loss, g = RC.loss_and_grad(x, d, shapes,
+                                       RC._stream(t, device=dev))
+            with torch.no_grad():
+                if t >= tw:
+                    pays.append(_pack(b1 * st.m + (1 - b1) * g
+                                      + st.worker_err, RC.BLOCK))
+                x, st = update(x, st, g, t)
+            losses.append(float(loss))
+        runs[dev] = dict(losses=losses, pays=pays, snap=snap, d=d,
+                         shapes=shapes)
+    # the first compressed payload from the CPU's state after the warmup
+    x, m, werr = runs["cpu"]["snap"]
+    first = []
+    for dev in ("cuda", "cpu"):
+        _, g = RC.loss_and_grad(x.to(dev), runs["cpu"]["d"],
+                                runs["cpu"]["shapes"],
+                                RC._stream(tw, device=dev))
+        with torch.no_grad():
+            first.append(_pack(b1 * m.to(dev) + (1 - b1) * g
+                               + werr.to(dev), RC.BLOCK))
+    return _vision_compare("resnet", runs, first, runs["cpu"]["d"])
+
+
+def _vision_dcgan_small() -> dict:
+    """17a for the DCGAN: 4 onebit steps of both networks on the card and
+    on the CPU from seed 0's weights and the port's stream; the losses are
+    the discriminator's and the generator's before each step."""
+    from repro_torch.benchmarks import dcgan_convergence as DC
+    from repro_torch.models.dcgan import (d_loss, g_loss,
+                                          init_discriminator,
+                                          init_generator)
+    gen = torch.Generator().manual_seed(0)
+    pg0, pd0 = init_generator(gen, DC.Z), init_discriminator(gen)
+    tw = VISION_SMALL["warmup"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        og = DC._Opt(pg0, "onebit", DC.LR, dev, warmup=tw)
+        od = DC._Opt(pd0, "onebit", DC.LR, dev, warmup=tw)
+        losses, pays, snap = [], [], None
+        for t in range(VISION_SMALL["steps"]):
+            z, real = DC._batch(t, dev)
+            pg_ = og.params()
+            if t == tw:
+                snap = (od.x.cpu(), og.x.cpu(), od.st.m.cpu())
+            gd = od.grad(lambda pd: d_loss(pd, pg_, real, z))
+            with torch.no_grad():
+                losses.append(float(d_loss(od.params(), pg_, real, z)))
+                if t >= tw:
+                    pays.append(_pack(od.cfg.b1 * od.st.m
+                                      + (1 - od.cfg.b1) * gd
+                                      + od.st.worker_err, DC.BLOCK))
+            od.step(gd, t)
+            pd_ = od.params()
+            og.step(og.grad(lambda pg: g_loss(pg, pd_, z)), t)
+        runs[dev] = dict(losses=losses, pays=pays, snap=snap)
+    # the discriminator's first compressed payload from the CPU's state
+    xd, xg, m = runs["cpu"]["snap"]
+    first = []
+    for dev in ("cuda", "cpu"):
+        od = DC._Opt(pd0, "onebit", DC.LR, dev, warmup=tw)
+        og = DC._Opt(pg0, "onebit", DC.LR, dev, warmup=tw)
+        od.x, og.x = xd.to(dev), xg.to(dev)
+        z, real = DC._batch(tw, dev)
+        pg_ = og.params()
+        gd = od.grad(lambda pd: d_loss(pd, pg_, real, z))
+        with torch.no_grad():
+            first.append(_pack(od.cfg.b1 * m.to(dev)
+                               + (1 - od.cfg.b1) * gd, DC.BLOCK))
+    return _vision_compare("dcgan", runs, first, od.d)
+
+
+def _vision_compare(tag: str, runs: dict, first: list, d: int) -> dict:
+    tw = VISION_SMALL["warmup"]
+    card, cpu = runs["cuda"]["losses"], runs["cpu"]["losses"]
+    held = range(tw + 1)
+    rel = [abs(card[t] - cpu[t]) / abs(cpu[t]) for t in held]
+    if not all(math.isfinite(v) for v in card + cpu):
+        raise AssertionError(f"vision-small {tag}: non-finite loss {card}")
+    if max(rel) > SMALL_LOSS_RTOL:
+        raise AssertionError(
+            f"vision-small {tag}: card losses {card[:tw + 1]} vs CPU "
+            f"{cpu[:tw + 1]}: rel {rel} (rtol {SMALL_LOSS_RTOL})")
+    n_bits = 8 * first[0].numel()
+    share = _signs_apart(*first) / n_bits
+    if share > FAMILIES_SIGN_FLIP_CEILING:
+        raise AssertionError(
+            f"vision-small {tag}: the first payload's sign bits differ in "
+            f"{share:.3e} of {n_bits} from one state (ceiling "
+            f"{FAMILIES_SIGN_FLIP_CEILING})")
+    free = [_signs_apart(a, b) for a, b in zip(runs["cuda"]["pays"],
+                                               runs["cpu"]["pays"])]
+    out = dict(d=d, losses_card=card, losses_cpu=cpu, warmup_rel=rel,
+               first_payload_bits=n_bits, first_payload_share_apart=share,
+               compressed_loss_abs_diff=[abs(a - b) for a, b in
+                                         zip(card[tw + 1:], cpu[tw + 1:])],
+               free_payload_bits_apart=free)
+    log(f"[vision-small] {tag} (d {d}): losses card {card}, CPU {cpu}; "
+        f"steps 0-{tw} rel {max(rel):.3e} (held at {SMALL_LOSS_RTOL}); the "
+        f"first payload from one state: {share:.3e} of {n_bits} sign bits "
+        f"apart (held at {FAMILIES_SIGN_FLIP_CEILING}); reported: later "
+        f"loss diff {out['compressed_loss_abs_diff']}, free-running payload "
+        f"bits apart {free}")
+    return out
+
+
+def phase_vision() -> dict:
+    """Phase 17: the paper's ResNet (Sec. 7.2) and DCGAN (Sec. 7.3) claims
+    and the benchmark harness (see the module docstring)."""
+    from repro_torch.benchmarks import kernel_micro
+    from repro_torch.benchmarks import overlap_check as OC
+    from repro_torch.benchmarks import resnet_convergence as RC
+    from repro_torch.benchmarks import run as harness
+    from repro_torch.kernels import build
+    from repro_torch.models.common import strict_f32
+    from repro_torch.obs.bench import load_ledger
+    t_phase = time.perf_counter()
+    out = {}
+    with strict_f32():
+        out["small"] = {"resnet": _vision_resnet_small(),
+                        "dcgan": _vision_dcgan_small()}
+
+    # 17b: the claims through the harness's entries
+    verdicts = {"resnet_convergence": lambda r: r["ok"],
+                "dcgan_convergence": lambda r: r["equilibrium_ok"]
+                and r["onebit_matches_adam"],
+                "kernel_micro": kernel_micro.passes}
+    claims = {}
+    for name in VISION_CLAIMS:
+        torch.cuda.empty_cache()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = harness.ALL[name](verbose=True, device="cuda")
+        secs = time.perf_counter() - t0
+        counts = build.launch_counts()
+        missing = [k for k in ("ef_compress", "decompress") if not counts[k]]
+        if missing:
+            raise AssertionError(f"vision {name}: no launch of {missing} "
+                                 f"({counts})")
+        if not all(math.isfinite(v) for v in _numbers(res)):
+            raise AssertionError(f"vision {name}: non-finite result {res}")
+        ok = verdicts[name](res)
+        claims[name] = dict(result=res, verdict="PASS" if ok else "FAIL",
+                            seconds=secs, launches=counts)
+        log(f"[vision] {name}: {'PASS' if ok else 'FAIL'} in {secs:.1f} s, "
+            f"launches {counts}")
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="BENCH_vision_")
+    os.close(fd)
+    try:
+        harness.write_json(path, {k: c["result"] for k, c in claims.items()},
+                           list(claims), "cuda")
+        n_rec = len(load_ledger(path)["records"])
+    finally:
+        os.remove(path)
+    log(f"[vision] --json ledger: {n_rec} records, read back by load_ledger")
+    out["claims"] = claims
+    out["ledger_records"] = n_rec
+
+    # 17c: the paper's CIFAR shape
+    cifar = {}
+    with strict_f32():
+        for kind in ("adam", "onebit"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            walls = []
+            losses = RC.train(kind, VISION_CIFAR["steps"], device="cuda",
+                              walls=walls, **{k: VISION_CIFAR[k] for k in
+                                              ("widths", "size", "batch")})
+            counts = build.launch_counts()
+            want = {"ef_compress": kind == "onebit",
+                    "decompress": kind == "onebit"}
+            if any(bool(counts[k]) != v for k, v in want.items()):
+                raise AssertionError(f"vision-cifar {kind}: launches "
+                                     f"{counts}")
+            finite = [math.isfinite(x) for x in losses]
+            first_bad = finite.index(False) if not all(finite) else None
+            want_bad = None if kind == "adam" else \
+                VISION_CIFAR["onebit_nonfinite_at"]
+            n_ok = len(losses) if first_bad is None else first_bad
+            if first_bad != want_bad or any(finite[n_ok:]):
+                raise AssertionError(
+                    f"vision-cifar {kind}: first non-finite loss at step "
+                    f"{first_bad}, expected {want_bad} and none finite "
+                    f"after it; losses {losses}")
+            cifar[kind] = dict(
+                step_ms_median=_median(walls[:n_ok]),
+                step_ms_median_nonfinite=_median(walls[n_ok:]),
+                steps_finite=n_ok, step_ms_first=walls[0],
+                step_ms_min=min(walls[:n_ok]),
+                around_switch=losses[RC.WARMUP - 2:RC.WARMUP + 5],
+                last10=losses[-10:], first=losses[:3],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=counts)
+            log(f"[vision-cifar] {kind}: widths {VISION_CIFAR['widths']}, "
+                f"{VISION_CIFAR['size']} x {VISION_CIFAR['size']}, batch "
+                f"{VISION_CIFAR['batch']}, {VISION_CIFAR['steps']} steps "
+                f"(T_w {RC.WARMUP}): {n_ok} finite; step median "
+                f"{cifar[kind]['step_ms_median']:.2f} ms over them (first "
+                f"{walls[0]:.1f}), over the rest "
+                f"{cifar[kind]['step_ms_median_nonfinite']}; losses at steps "
+                f"{RC.WARMUP - 2}-{RC.WARMUP + 4} "
+                f"{cifar[kind]['around_switch']}, last-10 mean "
+                f"{sum(losses[-10:]) / 10:.4f}, peak "
+                f"{cifar[kind]['peak_bytes']} B, launches {counts}")
+    out["cifar"] = cifar
+
+    # 17d: the overlap check on one card
+    res = OC.run(device="cuda")
+    if res["collectives"] != 0 or res["mesh"] != [1]:
+        raise AssertionError(f"vision overlap_check on one card: {res}")
+    out["overlap_check"] = dict(skip=True, mesh=res["mesh"],
+                                kernels_traced=res["kernels"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[vision] phase 17 in {out['seconds']:.1f} s (budget "
+        f"{VISION_BUDGET_S:.0f} s)")
+    return out
+
+
+def _median(xs):
+    """The median of ``xs`` (its upper middle), None when empty."""
+    return sorted(xs)[len(xs) // 2] if xs else None
+
+
+def _numbers(res):
+    """Every float in a (nested) result."""
+    if isinstance(res, dict):
+        for v in res.values():
+            yield from _numbers(v)
+    elif isinstance(res, float):
+        yield res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -2824,6 +3129,8 @@ def main() -> int:
     serve_families = {"small": phase_serve_families_small()}
     serve_families["mamba"] = phase_serve_mamba()
     serve_families["mixtral"] = phase_serve_mixtral()
+    torch.cuda.empty_cache()
+    vision = phase_vision()
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -2851,6 +3158,11 @@ def main() -> int:
             serve_families["mamba"]["launches"][e["name"]]
         e["launches_serve_mixtral"] = \
             serve_families["mixtral"]["launches"][e["name"]]
+        e["launches_vision"] = dict(
+            {k: c["launches"][e["name"]]
+             for k, c in vision["claims"].items()},
+            **{f"cifar_{k}": c["launches"][e["name"]]
+               for k, c in vision["cifar"].items()})
     print(json.dumps({"main_path": stats}))
     print(json.dumps({"family_path": {k: v for k, v in family.items()
                                       if k != "pipeline"}}))
@@ -2863,6 +3175,7 @@ def main() -> int:
     print(json.dumps({"obs": obs}))
     print(json.dumps({"families": families}))
     print(json.dumps({"serve_families": serve_families}))
+    print(json.dumps({"vision": vision}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

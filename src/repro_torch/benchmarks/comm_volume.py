@@ -175,6 +175,14 @@ def check_plans(d: int = D, block: int = BLOCK, device: str = "cuda",
     return table
 
 
+def run(verbose: bool = True, device: str = "cuda") -> Dict[str, dict]:
+    """The harness's entry: ``check_plans`` at the default size."""
+    if verbose:
+        print(f"== comm_volume --check-plans: d={D}, block {BLOCK}, "
+              f"{N_OUTER} x {N_INNER} ranks ({device}) ==")
+    return check_plans(device=device, verbose=verbose)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__,

@@ -20,7 +20,7 @@ scalars ``()``), the port one per-rank tensor per slot.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,13 +57,20 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
     return out
 
 
+def ravel_shapes(params: Mapping[str, torch.Tensor]
+                 ) -> List[Tuple[str, Tuple[int, ...]]]:
+    """The (path, shape) leaves of ``params`` in ravel order, as
+    :func:`params_from_flat` takes them."""
+    return [(p, tuple(params[p].shape))
+            for p in sorted(params, key=lambda p: p.split("."))]
+
+
 def flat_from_params(params: Mapping[str, torch.Tensor],
                      d_pad: Optional[int] = None) -> torch.Tensor:
     """The params as one f32 vector in ravel order, zero-padded to
     ``d_pad`` when given."""
-    paths = sorted(params, key=lambda p: p.split("."))
     flat = torch.cat([params[p].reshape(-1).to(torch.float32)
-                      for p in paths])
+                      for p, _ in ravel_shapes(params)])
     if d_pad is not None:
         if d_pad < flat.shape[0]:
             raise ValueError(f"d_pad={d_pad} < {flat.shape[0]} parameters")

@@ -872,3 +872,55 @@ def test_nccl_seq_sharded_decode_matches_one_card(card, tmp_path):
             err = max(err, float(np.abs(r[f"s{i}"] - want).max()))
     print(f"[nccl4] seq-sharded decode, 4 cards vs one: "
           f"{len(case['positions'])} steps, max abs err {err:.3e}")
+
+
+def test_nccl_overlap_check_and_comm_volume_harness(card, tmp_path):
+    """The harness (``benchmarks.run``) over NCCL on four cards:
+    ``overlap_check`` traces one pipelined hier exchange (2 x 2 mesh, 2
+    buckets) on every rank, finds NCCL kernels, and at least one of them
+    runs under a kernel on another stream (the check raises otherwise);
+    ``comm_volume`` holds every plan's bytes to the bytes handed to NCCL.
+    Both results go through ``--json``'s writer and are read back.  Then
+    ``overlap_check`` again at BERT-Large's d_pad (block 4096, the size
+    the training path exchanges), where the compress kernels take
+    milliseconds.  Prints the cards, and for each run and NCCL kernel its
+    time and the part of it under compute kernels and under other NCCL
+    kernels on another stream."""
+    import json
+    from repro_torch.benchmarks import run as harness
+    from repro_torch.obs.bench import load_ledger
+    _four_cards()
+    out = harness.run_benchmarks(["comm_volume", "overlap_check"], "cuda")
+    oc = out["overlap_check"]
+    assert oc["mesh"] == [2, 2] and oc["collectives"] > 0
+    assert 0 < oc["overlapped"] <= oc["collectives"]
+    assert len(out["comm_volume"]) == 18
+    assert all(r["match"] for r in out["comm_volume"].values())
+    path = str(tmp_path / "BENCH_all.json")
+    harness.write_json(path, out, list(out), "cuda")
+    assert len(load_ledger(path)["records"]) >= 18
+    import subprocess
+    card_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().replace("\n", " | ")
+    print(f"[nccl4] cards: {card_line}")
+    from repro_torch.benchmarks import overlap_check
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import flat_dim
+
+    def report(tag, r, block):
+        print(f"[nccl4] overlap_check {tag} (d {r['d']}, block {block}): "
+              f"{r['overlapped']} of {r['collectives']} NCCL kernels under "
+              f"another stream, {r['overlapped_compute']} under compute, "
+              f"{r['overlapped_nccl']} under NCCL; kernels [rank, name, us, "
+              "under compute us, under NCCL us] "
+              + json.dumps([[x["rank"], x["kernel"], round(x["us"], 2),
+                             round(x["hidden_compute_us"], 2),
+                             round(x["hidden_nccl_us"], 2)]
+                            for x in r["details"]]))
+    report("d_default", oc, 512)
+    big = overlap_check.run((2, 2), d=flat_dim(get_config("bert-large"), 4,
+                                               4096), block=4096)
+    report("d_bert_large", big, 4096)
+    assert big["collectives"] > 0 and big["overlapped"] > 0
