@@ -234,6 +234,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                the switch, last-10 losses, peak memory, launches.
                17d: ``overlap_check`` on one card prints its SKIP.  Prints
                the ``{"vision": {...}}`` line.
+ 18. tp      — tensor, sequence and expert parallelism (the layout of the
+               four-card paths; the paths themselves run on four cards,
+               ``tests/test_torch_cuda.py -k nccl_tp``).  18a, on any card:
+               the global trees of path A (internlm2-1.8b at full width
+               and depth, tp 2) and path B (mixtral-8x22b at full width cut
+               to 1 layer, tp 4) drawn on the card, cut into every model
+               rank's shards (``convert.shard_params``), each shard's flat
+               vector the rank's ``flat_size``, joined back
+               (``unshard_params``) bitwise; each rank's flat length,
+               padded length and predicted optimizer-state bytes printed;
+               then ef_compress, decompress and adam_step on random card
+               vectors at each path's padded length, block 4096, against
+               their plain versions at phase 3's tolerances (packed signs
+               and decompress bitwise), the launch counts set to 0 just
+               before and read just after (one each).
+               18b, with two or more cards: ``min(count, 4)`` NCCL ranks
+               (model axis 2) run the reduced SP / TP parity
+               (``tests/_torch_tp_worker.reduced_parity``); with one card
+               it prints that it needs two.  Prints the ``{"tp": {...}}``
+               line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
@@ -3075,6 +3095,159 @@ def _numbers(res):
         yield res
 
 
+# phase 18: the four-card paths' layouts (arch, tp, the n_dp of the path's
+# mesh, the config fields that cut it)
+TP_LAYOUTS = {"A": ("internlm2-1.8b", 2, 2, {}),
+              "B": ("mixtral-8x22b", 4, 1, {"n_layers": 1})}
+
+
+def _close_chunked(name: str, got: torch.Tensor, want: torch.Tensor,
+                   rtol: float, atol: float, chunk: int = 1 << 27) -> float:
+    """``torch.testing.assert_close`` slice by slice (a flat vector of ~1e9
+    elements would take its temporaries at full length); returns the max
+    abs error."""
+    err = 0.0
+    for lo in range(0, got.shape[0], chunk):
+        a, b = got[lo:lo + chunk], want[lo:lo + chunk]
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name} at {lo}: {m}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def _kernels_at_length(d: int, block: int, seed: int = 0) -> dict:
+    """The three optimizer kernels against their plain versions at one
+    model rank's padded flat length ``d`` (a four-card path's), block
+    ``block``, at phase 3's tolerances: ef_compress's packed signs and
+    decompress bitwise, the scales at rtol 1e-6, new_err at rtol 1e-5 /
+    atol 1e-6, adam_step (with weight decay) at rtol 1e-5 / atol 5e-7.
+    The launch counts are set to 0 just before and read just after."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_adam import kernel as FK
+    from repro_torch.kernels.fused_adam import ref as FR
+    from repro_torch.kernels.onebit import kernel as OK
+    from repro_torch.kernels.onebit import ref as OR
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(scale=1.0):
+        return torch.randn(d, generator=gen, device="cuda").mul_(scale)
+
+    t0 = time.perf_counter()
+    build.reset_launch_counts()
+    x, err = randn(), randn(0.1)
+    pk, sc, ne = OK.ef_compress_fused(x, err, block)
+    pk_r, sc_r, ne_r = OR.ef_compress_fused(x, err, block)
+    del x, err
+    if not torch.equal(pk, pk_r):
+        raise AssertionError(f"ef_compress at d {d}: packed differs in "
+                             f"{int((pk != pk_r).sum())} bytes")
+    errs = {"ef_compress": max(
+        _close_chunked("ef_compress scales", sc, sc_r, 1e-6, 0.0),
+        _close_chunked("ef_compress new_err", ne, ne_r, 1e-5, 1e-6))}
+    del pk, sc, ne, ne_r
+    out = OK.decompress(pk_r, sc_r, block)
+    out_r = OR.decompress(pk_r, sc_r, block)
+    if not torch.equal(out, out_r):
+        raise AssertionError(f"decompress at d {d}: not bitwise the plain "
+                             "version")
+    errs["decompress"] = 0.0
+    del out, out_r, pk_r, sc_r
+    torch.cuda.empty_cache()
+    xa, m, g = randn(), randn(0.01), randn(0.01)
+    v = randn(1e-4).abs_()
+    got = FK.adam_step(xa, m, v, g, 1e-3, 0.9, 0.999, 1e-8, 0.01)
+    want = FR.adam_step(xa, m, v, g, 1e-3, 0.9, 0.999, 1e-8, 0.01)
+    del xa, m, v, g
+    errs["adam_step"] = max(
+        _close_chunked(f"adam_step {k}", a, b, 1e-5, 5e-7)
+        for k, a, b in zip("xmv", got, want))
+    del got, want
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs,
+            "launches": {k: counts[k] for k in errs},
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_tp() -> dict:
+    """Phase 18: tensor parallelism's layouts on the card and, with two or
+    more cards, the reduced SP / TP parity over NCCL (see the module
+    docstring)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (flat_from_params, params_from_flat,
+                                     shard_params, unshard_params)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import TwoStageOptimizer
+    from repro_torch.state import StateLayout, state_bytes
+    from repro_torch.train.step import flat_dim, segment_info
+    t_phase = time.perf_counter()
+    out = {}
+    for name, (arch, tp, n_dp, fields) in TP_LAYOUTS.items():
+        cfg = dataclasses.replace(get_config(arch), **fields)
+        t0 = time.perf_counter()
+        glob = T.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             device="cuda", tp=tp)
+        specs = T.param_specs(cfg)
+        local = T.leaf_shapes(cfg, tp)
+        flats = [flat_from_params(shard_params(glob, specs, tp, r))
+                 for r in range(tp)]
+        d = T.flat_size(cfg, tp)
+        if any(f.shape[0] != d for f in flats):
+            raise AssertionError(f"[tp] {name}: a shard is not {d} long")
+        back = unshard_params([params_from_flat(f, local) for f in flats],
+                              specs)
+        same = all(torch.equal(back[p], glob[p]) for p in glob)
+        if not same:
+            raise AssertionError(f"[tp] {name}: shard -> unshard is not "
+                                 "bitwise the global tree")
+        del glob, flats, back
+        torch.cuda.synchronize()
+        d_pad = flat_dim(cfg, n_dp, 4096, tp)
+        ctx = StateLayout(d=d_pad, n_dp=n_dp, n_srv=n_dp,
+                          n_segments=segment_info(cfg, d_pad, tp).n,
+                          dp_sizes=(n_dp,), tp=tp)
+        sb = state_bytes(TwoStageOptimizer().state_slots("replicated"), ctx)
+        torch.cuda.empty_cache()
+        kern = _kernels_at_length(d_pad, 4096)
+        if any(v != 1 for v in kern["launches"].values()):
+            raise AssertionError(f"[tp] {name}: kernel launches "
+                                 f"{kern['launches']}, one each expected")
+        out[name] = dict(arch=arch, tp=tp, n_dp=n_dp, fields=fields,
+                         params_global=cfg.param_count(tp),
+                         flat_size=d, d_pad=d_pad, state_bytes=sb,
+                         kernels=kern,
+                         seconds=time.perf_counter() - t0)
+        log(f"[tp] 18a {name} {arch}{' x ' + str(fields) if fields else ''}"
+            f" at tp {tp}: {cfg.param_count(tp):,} global params; each of "
+            f"the {tp} model ranks holds {d:,} (d_pad {d_pad:,} over "
+            f"{n_dp} dp), predicted optimizer state {sb / 1e9:.2f} GB a "
+            f"rank; shard -> unshard bitwise; at d_pad, block 4096: "
+            f"ef_compress, decompress, adam_step against their plain "
+            f"versions, max abs err {kern['max_abs_err']}, launches "
+            f"{kern['launches']}")
+    n = min(torch.cuda.device_count(), 4)
+    if n >= 2:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        import _torch_tp_worker as worker
+        workdir = tempfile.mkdtemp()
+        try:
+            out["reduced_parity"] = worker.reduced_parity(
+                workdir, 4 if n == 4 else 2, "nccl", torch.device("cuda"))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"[tp] 18b reduced SP / TP parity over NCCL on "
+            f"{4 if n == 4 else 2} cards: {out['reduced_parity']}")
+    else:
+        log(f"[tp] 18b ran on {n} card: the NCCL SP / TP parity needs two "
+            "or more cards (tests/test_torch_cuda.py -k nccl_tp runs it on "
+            "four)")
+    out["cards"] = n
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3131,6 +3304,8 @@ def main() -> int:
     serve_families["mixtral"] = phase_serve_mixtral()
     torch.cuda.empty_cache()
     vision = phase_vision()
+    torch.cuda.empty_cache()
+    tp = phase_tp()
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -3176,6 +3351,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"serve_families": serve_families}))
     print(json.dumps({"vision": vision}))
+    print(json.dumps({"tp": tp}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,12 +29,11 @@ def active_params_no_embed(cfg: ArchConfig, tp: int = 1) -> int:
 
 
 def param_count_local(cfg: ArchConfig, tp: int = 1) -> int:
-    """Exact per-model-rank parameter count: the summed sizes of the
-    ``init_params`` leaves (the flat optimizer vector before padding)."""
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported")
+    """Exact per-model-rank parameter count: the summed sizes of this
+    rank's shards of the ``init_params`` leaves at ``tp`` (the flat
+    optimizer vector before padding)."""
     from repro_torch.models.transformer import flat_size
-    return int(flat_size(cfg))
+    return int(flat_size(cfg, tp))
 
 
 def param_bytes(cfg: ArchConfig, tp: int = 1, dtype_bytes: int = 4) -> int:

@@ -25,11 +25,9 @@ from repro_torch.plan.tune import autotune, implied_use_kernel
 def flat_param_dim(cfg: ArchConfig, tp: int = 1, n_dp: int = 1,
                    block: int = 4096) -> int:
     """Padded flat parameter length a model shard exchanges (the
-    training step's ``flat_dim``)."""
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported")
+    training step's ``flat_dim`` of one model rank at ``tp``)."""
     from repro_torch.train.step import flat_dim
-    return flat_dim(cfg, n_dp, block)
+    return flat_dim(cfg, n_dp, block, tp)
 
 
 def predict_point(cfg: ArchConfig, seq_len: int, batch_per_replica: int,

@@ -138,7 +138,7 @@ def sweep(mesh_spec: str, sizes: Sequence[int], dev: torch.device
     (in an initialised process group spanning its ranks)."""
     from repro_torch.launch.mesh import build_mesh
     from repro_torch.plan.executor import group_of
-    mesh = build_mesh(mesh_spec, dev.type)
+    mesh = build_mesh(mesh_spec)
     samples = []
     for tier, axes in _tiers(mesh).items():
         group = group_of(axes)
@@ -207,7 +207,10 @@ def run(mesh_spec: str = "4", sizes: Sequence[int] = SIZES,
     """Spawn the mesh's ranks, sweep, fit, and write the
     ``ClusterSpec.from_measured`` JSON."""
     from repro_torch.launch.mesh import parse_mesh
-    dp_sizes = parse_mesh(mesh_spec)
+    dp_sizes, tp = parse_mesh(mesh_spec)
+    if tp != 1:
+        raise ValueError(f"mesh {mesh_spec!r}: the sweep times the dp "
+                         "links (a model axis of 1)")
     world = int(np.prod(dp_sizes))
     if world < 2:
         raise ValueError(f"mesh {mesh_spec!r} has one rank: nothing to "

@@ -123,7 +123,7 @@ def _rank_main(rank: int, world: int, workdir: str, d: int, block: int,
     from repro_torch.plan import execute_plan
     dev = init_rank(rank, world, workdir, device)
     try:
-        build_mesh(MESH, dev.type)
+        build_mesh(MESH)
         plans = predicted_plans(d, block)
         gen = torch.Generator().manual_seed(rank)
         counts = {}

@@ -48,7 +48,7 @@ def _traced_exchange(mesh_shape: Sequence[int], d: int, block: int,
     from repro_torch.core import comm
     from repro_torch.launch.mesh import build_mesh, pod_split
     from repro_torch.optim import get_compressor
-    mesh = build_mesh(tuple(mesh_shape) + (1,), dev.type)
+    mesh = build_mesh(tuple(mesh_shape) + (1,))
     inner, outer, _, _ = pod_split(mesh.axes, mesh.sizes) \
         if mesh.n_dp > 1 else ((), (), 1, 1)
     comp = get_compressor("onebit", block_size=block)

@@ -7,7 +7,9 @@ topology) points this writes, deterministically, the declared slot table
 state bytes, and a checksum of the run->canonical EF permutation per
 pipeline bucket count.  Built from the port's own slot registry, its
 text equals the reference's for the default grid, so a drift of either
-side's state layout shows up in the artifact diff.
+side's state layout shows up in the artifact diff.  ``--tp T`` describes
+each model rank's state on a model axis of T (the ``tp`` of every
+context; the per-rank lengths are a model rank's).
 
   python -m repro_torch.benchmarks.state_manifest --json slot_layout.json
 """
@@ -24,7 +26,8 @@ BLOCK = 4096
 
 
 def build_manifest(d: int = D, n_inner: int = N_INNER,
-                   n_outer: int = N_OUTER, block: int = BLOCK) -> dict:
+                   n_outer: int = N_OUTER, block: int = BLOCK,
+                   tp: int = 1) -> dict:
     opt = TwoStageOptimizer()
     n_dp = n_inner * n_outer
     out = {"d": d, "block": block, "grid": {}}
@@ -35,7 +38,7 @@ def build_manifest(d: int = D, n_inner: int = N_INNER,
                 d=d, n_dp=n_dp, n_srv=n_srv,
                 n_outer=n_outer if topo == "hier" else 1,
                 n_segments=8,
-                dp_sizes=(n_outer, n_inner), tp=1)
+                dp_sizes=(n_outer, n_inner), tp=tp)
             out["grid"][f"{layout}/{topo}"] = layout_manifest(
                 opt.state_slots(layout), ctx, block=block)
     return out
@@ -45,10 +48,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="the model axis of the described mesh")
     ap.add_argument("--json", default=None,
                     help="write the manifest JSON here")
     args = ap.parse_args(argv)
-    man = build_manifest()
+    man = build_manifest(tp=args.tp)
     text = manifest_json(man)
     if args.json:
         with open(args.json, "w") as f:

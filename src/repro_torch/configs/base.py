@@ -132,11 +132,10 @@ class ArchConfig:
         return self.family in ("ssm", "hybrid") or self.window is not None
 
     def param_count(self, tp: int = 1) -> int:
-        """Parameter count of ``init_params`` (padding included)."""
-        if tp != 1:
-            raise NotImplementedError("tensor parallelism is not ported")
-        from repro_torch.models.transformer import flat_size
-        return flat_size(self)
+        """Parameter count of the global tree at ``tp`` (its padded heads
+        and vocab, duplicated kv heads and MoE ff slices included)."""
+        from repro_torch.models.transformer import global_leaf_shapes
+        return sum(math.prod(s) for _, s in global_leaf_shapes(self, tp))
 
     def active_param_count(self, tp: int = 1) -> int:
         """Parameters touched a token (MoE: only the top_k experts)."""

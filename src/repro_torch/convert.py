@@ -8,14 +8,19 @@ ravel order; ``params_to_jax`` is its inverse.  ``flat_from_params``
 concatenates the port's params in ``ravel_pytree`` order — sorted keys at
 every level, each leaf in C order — so the flat vector, and with it every
 compression scale block, covers the same elements as the reference's;
-``params_from_flat`` cuts a flat vector back into them.
+``params_from_flat`` cuts a flat vector back into them.  Under tensor
+parallelism a model rank holds the contiguous shard of each leaf along the
+dim ``models.transformer.param_specs`` names: ``shard_params`` cuts rank
+r's shards out of the global params, ``unshard_params`` joins every
+rank's back into them.
 
 Optimizer state: the reference holds one GLOBAL array per slot (the
 shapes of ``repro_torch.state.slots.global_shapes``: replicated slots
 ``(tp, L)``, per-dp-rank and dp-sharded slots ``(*dp_sizes, tp, L)``,
 scalars ``()``), the port one per-rank tensor per slot.
-``state_to_global`` assembles the global arrays from every rank's state;
-``state_from_global`` takes one rank's tensors out of them.
+``state_to_global`` assembles the global arrays from every rank's state
+(rank order: dp index * tp + model index); ``state_from_global`` takes one
+rank's tensors out of them.
 """
 from __future__ import annotations
 
@@ -91,19 +96,59 @@ def params_from_flat(flat: torch.Tensor,
     return out
 
 
+def shard_leaf(t: torch.Tensor, dim: Optional[int], tp: int, rank: int
+               ) -> torch.Tensor:
+    """Model rank ``rank``'s contiguous shard (a view) of a global leaf
+    split along ``dim`` into ``tp`` pieces (None: replicated, whole)."""
+    if dim is None or tp == 1:
+        return t
+    if t.shape[dim] % tp:
+        raise ValueError(f"{tuple(t.shape)}: dim {dim} does not split over "
+                         f"{tp} model ranks")
+    size = t.shape[dim] // tp
+    return t.narrow(dim, rank * size, size)
+
+
+def shard_params(params: Mapping[str, torch.Tensor],
+                 specs: Mapping[str, Optional[int]], tp: int, rank: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Model rank ``rank``'s shards (views) of the global ``params``, each
+    leaf cut along its ``specs`` dim."""
+    return {path: shard_leaf(t, specs[path], tp, rank)
+            for path, t in params.items()}
+
+
+def unshard_params(shards: Sequence[Mapping[str, torch.Tensor]],
+                   specs: Mapping[str, Optional[int]]
+                   ) -> Dict[str, torch.Tensor]:
+    """The global params from every model rank's shards (rank order):
+    split leaves concatenated along their dim, replicated ones rank 0's."""
+    out = {}
+    for path, t in shards[0].items():
+        dim = specs[path]
+        out[path] = t if dim is None or len(shards) == 1 else \
+            torch.cat([sh[path] for sh in shards], dim=dim)
+    return out
+
+
 def state_to_global(rank_states: Sequence[Mapping[str, torch.Tensor]],
                     slots: Sequence[SlotSpec], ctx: StateLayout
                     ) -> StateTree:
-    """Every rank's per-rank state (rank order) -> the reference's global
-    numpy arrays.  Replicated slots and scalars are taken from rank 0."""
-    if len(rank_states) != max(ctx.n_dp, 1):
+    """Every rank's per-rank state (rank order: dp index * tp + model
+    index) -> the reference's global numpy arrays.  Replicated slots are
+    the model ranks' of dp rank 0 (``(tp, L)``), scalars rank 0's."""
+    tp = max(ctx.tp, 1)
+    if len(rank_states) != max(ctx.n_dp, 1) * tp:
         raise ValueError(f"{len(rank_states)} rank states for n_dp = "
-                         f"{ctx.n_dp}")
+                         f"{ctx.n_dp} x tp = {tp}")
     out = {}
     for s in slots:
         shape, dtype = global_shapes((s,), ctx)[s.name]
-        if s.extent == "scalar" or s.replication == "replicated":
+        if s.extent == "scalar":
             a = _host(rank_states[0][s.name], dtype)
+        elif s.replication == "replicated":
+            a = np.stack([_host(st[s.name], dtype)
+                          for st in rank_states[:tp]])
         else:
             a = np.stack([_host(st[s.name], dtype) for st in rank_states])
         out[s.name] = a.reshape(shape)
@@ -112,11 +157,11 @@ def state_to_global(rank_states: Sequence[Mapping[str, torch.Tensor]],
 
 def state_from_global(glob: Mapping[str, np.ndarray],
                       slots: Sequence[SlotSpec], ctx: StateLayout,
-                      rank: int = 0, device="cpu") -> StateTree:
-    """Rank ``rank``'s per-rank tensors out of the reference's global
-    arrays (tp = 1)."""
-    if ctx.tp != 1:
-        raise ValueError("the port holds no tensor-parallel shards")
+                      rank: int = 0, device="cpu",
+                      model_rank: int = 0) -> StateTree:
+    """The per-rank tensors of dp rank ``rank``, model rank ``model_rank``
+    out of the reference's global arrays."""
+    tp = max(ctx.tp, 1)
     out = {}
     for s in slots:
         shape, dtype = global_shapes((s,), ctx)[s.name]
@@ -125,8 +170,9 @@ def state_from_global(glob: Mapping[str, np.ndarray],
             raise ValueError(f"slot {s.name}: global shape {a.shape}, "
                              f"expected {shape}")
         if s.extent != "scalar":
-            a = a.reshape(-1) if s.replication == "replicated" else \
-                a.reshape(max(ctx.n_dp, 1), -1)[rank]
+            a = a.reshape(tp, -1)[model_rank] \
+                if s.replication == "replicated" else \
+                a.reshape(max(ctx.n_dp, 1), tp, -1)[rank, model_rank]
         out[s.name] = torch.from_numpy(
             np.array(a, dtype=dtype)).to(device=device,
                                           dtype=DTYPES[s.dtype])

@@ -1,50 +1,58 @@
-"""The data-parallel mesh of a run: its axes, their sizes and the process
-group of every set of axes an exchange runs over.
+"""The mesh of a run: its data-parallel axes and model axis, their sizes,
+and the process group of every set of axes a collective runs over.
 
-A mesh shape is written as the reference's ``--mesh``: ``N`` or ``Nx1``
-(one dp axis, ``("dp",)``), ``PxNx1`` (``("pod", "data")``: P pods of N
-ranks).  The trailing model axis must be 1: tensor parallelism is not
-ported.  When the mesh has more than one dp axis the leading one is the
-pod (cross-pod) axis (:func:`pod_split`).
+A mesh shape is written as the reference's ``--mesh``: ``N`` (one dp axis,
+``("dp",)``), ``NxT`` (N dp ranks x a model axis of T), ``PxNxT``
+(``("pod", "data")``: P pods of N ranks, x T).  When the mesh has more
+than one dp axis the leading one is the pod (cross-pod) axis
+(:func:`pod_split`).
+
+The model axis varies fastest: global rank = dp index * T + model index,
+the dp index = pod * N + data, the reference's axis order.  Each model
+rank runs the optimizer's exchange over its own dp group (the ranks of
+the same model index), and the model's collectives over its model group
+(the ranks of the same dp index).
 
 :func:`build_mesh` makes the groups over the initialised default process
-group, a ``torch.distributed.device_mesh.DeviceMesh`` for the two-axis
-mesh (global rank = pod * N + data; the "pod" group's rank is the pod
-index, the "data" group's the data index, the reference's axis order),
-and installs the axes -> group map that ``plan.executor`` reads.
+group, and installs the axes -> group map that ``plan.executor`` reads:
+the dp axes (each, and together) -> this model rank's dp group(s),
+``("model",)`` -> the model group, the model axis with every dp axis ->
+the default group.  At T = 1 the dp axes together are the default group
+and there are no model or kv-duplicate groups.  Every rank creates every
+group in the same order: the model groups, the kv-duplicate groups (the
+groups of ``rep`` contiguous model ranks, for every ``rep`` that divides
+T, ``models.common.ParallelCtx.kv_group``), then the dp groups.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
+from repro_torch.models.common import ParallelCtx
 from repro_torch.plan import executor as _exec
 
 FLAT_AXES = ("dp",)
 POD_AXES = ("pod", "data")
+MODEL_AXIS = "model"
 
 
-def parse_mesh(spec) -> Tuple[int, ...]:
-    """The dp sizes of a mesh written ``N``, ``Nx1`` or ``PxNx1`` (or given
-    as a tuple of ints); a model axis above 1 raises."""
+def parse_mesh(spec) -> Tuple[Tuple[int, ...], int]:
+    """(dp sizes, model axis size) of a mesh written ``N``, ``NxT`` or
+    ``PxNxT`` (or given as a tuple of ints)."""
     shape = tuple(int(s) for s in (spec.split("x") if isinstance(spec, str)
                                    else spec))
     if not shape or len(shape) > 3 or any(s < 1 for s in shape):
-        raise ValueError(f"mesh {spec!r}: expected N, Nx1 or PxNx1")
-    if len(shape) >= 2:
-        if shape[-1] != 1:
-            raise NotImplementedError(
-                f"mesh {spec!r}: a model axis of {shape[-1]} needs tensor "
-                "parallelism, which the port does not have yet")
-        shape = shape[:-1]
-    return shape
+        raise ValueError(f"mesh {spec!r}: expected N, NxT or PxNxT")
+    if len(shape) == 1:
+        return shape, 1
+    return shape[:-1], shape[-1]
 
 
 def mesh_axes(dp_sizes: Sequence[int]) -> Tuple[str, ...]:
-    """Axis names of a mesh with these dp sizes."""
+    """Dp axis names of a mesh with these dp sizes."""
     return FLAT_AXES if len(dp_sizes) == 1 else POD_AXES
 
 
@@ -62,36 +70,94 @@ def pod_split(dp_axes: Sequence[str], dp_sizes: Sequence[int]):
 
 @dataclasses.dataclass(frozen=True)
 class DpMesh:
-    """A built mesh: axis names and sizes, and the groups of every axis set
-    (None = the default group)."""
+    """A built mesh: the dp axis names and sizes, the groups of every axis
+    set (None = the default group), the model axis's size and this rank's
+    place on it (``model_group`` None with ``tp`` 1: no model axis), and
+    the kv-duplicate groups (see :class:`~repro_torch.models.common.
+    ParallelCtx`)."""
 
     axes: Tuple[str, ...]
     sizes: Tuple[int, ...]
     groups: Dict[Tuple[str, ...], Optional[object]]
+    tp: int = 1
+    model_group: Optional[object] = None
+    kv_groups: Tuple[Tuple[int, object], ...] = ()
 
     @property
     def n_dp(self) -> int:
         return math.prod(self.sizes)
 
+    @property
+    def model_rank(self) -> int:
+        """This rank's index on the model axis."""
+        return dist.get_rank() % self.tp if self.tp > 1 else 0
 
-def build_mesh(spec, device_type: str = "cpu") -> DpMesh:
+    @property
+    def dp_rank(self) -> int:
+        """This rank's dp index (pod * N + data)."""
+        if self.n_dp == 1:
+            return 0
+        return dist.get_rank() // self.tp
+
+    @property
+    def tp_axes(self) -> Tuple[str, ...]:
+        """``("model",)`` when the model axis is above 1, else ()."""
+        return (MODEL_AXIS,) if self.tp > 1 else ()
+
+    def parallel_ctx(self, sp: bool = False) -> ParallelCtx:
+        """The model code's view of this rank's model axis."""
+        if self.tp == 1:
+            return ParallelCtx()
+        return ParallelCtx(group=self.model_group, tp=self.tp, sp=sp,
+                           kv_groups=self.kv_groups)
+
+
+def _subgroups(rank_sets: List[List[int]], me: int):
+    """Create every group of ``rank_sets`` (all ranks, same order); return
+    the one that holds ``me``."""
+    mine = None
+    for ranks in rank_sets:
+        g = dist.new_group(ranks)
+        if me in ranks:
+            mine = g
+    return mine
+
+
+def build_mesh(spec) -> DpMesh:
     """Build the mesh ``spec`` over the default process group (which must
     span exactly its ranks; none needed for one rank) and install its
     groups for the executor."""
-    sizes = parse_mesh(spec)
+    sizes, tp = parse_mesh(spec)
     axes = mesh_axes(sizes)
     n = math.prod(sizes)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != n:
-        raise ValueError(f"mesh {spec!r} holds {n} ranks, the process group "
-                         f"{world}")
+    if world != n * tp:
+        raise ValueError(f"mesh {spec!r} holds {n * tp} ranks, the process "
+                         f"group {world}")
+    me = dist.get_rank() if dist.is_initialized() else 0
     groups: Dict[Tuple[str, ...], Optional[object]] = {}
+    model_group, kv_groups = None, []
+    if tp > 1:
+        model_group = _subgroups(
+            [[i * tp + m for m in range(tp)] for i in range(n)], me)
+        for rep in range(2, tp):
+            if tp % rep == 0:
+                kv_groups.append((rep, _subgroups(
+                    [[i * tp + g * rep + j for j in range(rep)]
+                     for i in range(n) for g in range(tp // rep)], me)))
+        groups[(MODEL_AXIS,)] = model_group
+        groups[(MODEL_AXIS,) + axes] = None
     if n > 1:
-        groups[axes] = None
+        groups[axes] = None if tp == 1 else _subgroups(
+            [[i * tp + m for i in range(n)] for m in range(tp)], me)
         if len(axes) == 2:
-            from torch.distributed.device_mesh import init_device_mesh
-            dm = init_device_mesh(device_type, sizes, mesh_dim_names=axes)
-            for a in axes:
-                groups[(a,)] = dm.get_group(a)
+            p_n, d_n = sizes
+            groups[("pod",)] = _subgroups(
+                [[(p * d_n + d) * tp + m for p in range(p_n)]
+                 for m in range(tp) for d in range(d_n)], me)
+            groups[("data",)] = _subgroups(
+                [[(p * d_n + d) * tp + m for d in range(d_n)]
+                 for m in range(tp) for p in range(p_n)], me)
     _exec.set_groups(groups)
-    return DpMesh(axes=axes, sizes=sizes, groups=groups)
+    return DpMesh(axes=axes, sizes=sizes, groups=groups, tp=tp,
+                  model_group=model_group, kv_groups=tuple(kv_groups))

@@ -4,9 +4,9 @@ hybrid decoders, the audio and VLM stubs; ``NAME-smoke`` for the reduced
 config).
 
 Runs on the card unless asked for the CPU (``--device cpu``); asking for
-``cuda`` without a card raises.  One process is one dp rank: run it alone
-(n_dp = 1), or under ``torchrun`` (NCCL on cuda, gloo on cpu), where the
-mesh defaults to one dp axis over ``WORLD_SIZE`` ranks.
+``cuda`` without a card raises.  One process is one rank of the mesh: run
+it alone (n_dp = 1), or under ``torchrun`` (NCCL on cuda, gloo on cpu),
+where the mesh defaults to one dp axis over ``WORLD_SIZE`` ranks.
 
   python -m repro_torch.launch.train --arch bert-large --steps 6 \\
       --warmup-steps 3 --batch 16 --seq 128 --recipe onebit_lamb
@@ -14,17 +14,24 @@ mesh defaults to one dp axis over ``WORLD_SIZE`` ranks.
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
       --arch bert-large-smoke --mesh 2x2x1 --topology hier --pipeline 2 \\
       --overlap-bwd on
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+      --arch internlm2-1.8b-smoke --mesh 2x2
 
-``--mesh`` takes the reference's grammar with a model axis of 1 (``N``,
-``Nx1``, ``PxNx1``: P pods of N ranks).  ``--topology hier`` runs the
-two-level exchange (on a one-pod mesh it is the flat one, and the printed
-plan says ``flat/...``); ``--pipeline N`` splits the compressed exchange
-into N block-aligned buckets (clamped to the alignment units);
-``--overlap-bwd on`` issues each bucket's exchange from inside backward
-on compressed steps that synchronise, with more than one bucket (every
-other step runs serially; each step's record says which).  ``auto`` for
-any of them is resolved by one joint search of the plan tuner
-(``repro_torch.plan.autotune``) against ``--cluster`` (a link preset or
+``--mesh`` takes the reference's grammar (``N``; ``NxT``: N dp ranks x a
+model axis of T; ``PxNxT``: P pods of N ranks, x T).  With T > 1 each
+model rank holds its shard of every tensor-parallel leaf (the reference's
+global tree at tp = T, drawn leaf by leaf from the seed and cut), runs
+the model's Megatron collectives over its model group, and runs the
+optimizer's warmup all-reduce and compressed exchange over its own dp
+group, on its own flat vector (``models.common``, ``launch.mesh``).
+``--topology hier`` runs the two-level exchange (on a one-pod mesh it is
+the flat one, and the printed plan says ``flat/...``); ``--pipeline N``
+splits the compressed exchange into N block-aligned buckets (clamped to
+the alignment units); ``--overlap-bwd on`` issues each bucket's exchange
+from inside backward on compressed steps that synchronise, with more than
+one bucket (every other step runs serially; each step's record says
+which).  ``auto`` for any of them is resolved by one joint search of the
+plan tuner (``repro_torch.plan.autotune``) against ``--cluster`` (a link preset or
 ``measured:<comm_sweep.json>``) and ``--device-spec`` (a device preset,
 default ``h100-sxm`` on cuda and ``cpu-host`` on cpu, or
 ``measured:<kernel_sweep.json>``); it prints the pick and the priced
@@ -90,11 +97,13 @@ import torch.distributed as dist
 from repro_torch.configs import (get_config, get_optim_recipe,
                                   list_optim_recipes)
 from repro_torch.configs.base import InputShape
-from repro_torch.convert import flat_from_params, params_from_flat
+from repro_torch.convert import (flat_from_params, params_from_flat,
+                                 shard_params, unshard_params)
 from repro_torch.data import SyntheticStream
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import build_mesh, mesh_axes, pod_split
-from repro_torch.models.transformer import init_params, leaf_shapes
+from repro_torch.models.transformer import (global_leaf_shapes, init_params,
+                                            leaf_shapes, param_specs)
 from repro_torch.obs import (AUDIT_MODES, MEMORY_MODES, FiniteGuard,
                              HealthMonitor, MetricBuffer, Tracer, as_sink,
                              make_audit_probe, set_tracing)
@@ -152,7 +161,8 @@ def resolve_schedule(topology, pipeline, overlap_bwd,
                      dp_sizes=(1,), compressor: str = "onebit",
                      block_size: int = 4096, compressor_kwargs=None,
                      device_spec="h100-sxm", batch: int = 8,
-                     seq: int = 128, verbose: bool = True) -> tuple:
+                     seq: int = 128, verbose: bool = True,
+                     tp: int = 1) -> tuple:
     """``(topology, n_buckets, overlap, tuned)`` from the options'
     spellings: a topology name or ``"auto"``; ``"off"``, a bucket count
     or ``"auto"``; ``"off"``, ``"on"`` or ``"auto"``.
@@ -164,7 +174,8 @@ def resolve_schedule(topology, pipeline, overlap_bwd,
     the compressor and block size are pinned.  Explicit values pin their
     axis.  Overlap candidates are priced on the analytic backward ready
     times for (``batch``, ``seq``) and charged only the exchange time
-    exposed beyond backward."""
+    exposed beyond backward.  ``tp``: the model axis (each model rank
+    exchanges its own flat vector)."""
     if topology not in ("flat", "hier", "auto"):
         raise ValueError(f"topology must be 'flat', 'hier' or 'auto', got "
                          f"{topology!r}")
@@ -183,7 +194,7 @@ def resolve_schedule(topology, pipeline, overlap_bwd,
     _, _, n_inner, n_outer = pod_split(mesh_axes(dp_sizes), dp_sizes)
     spec = get_cluster(cluster, n_inner=n_inner, n_outer=n_outer,
                        device=device_spec)
-    d = flat_dim(cfg, n_inner * n_outer, block_size)
+    d = flat_dim(cfg, n_inner * n_outer, block_size, tp)
     if topo_auto:
         topos = ("flat", "hier") if n_outer > 1 else ("flat",)
     else:
@@ -193,7 +204,7 @@ def resolve_schedule(topology, pipeline, overlap_bwd,
     # forced on still prices overlap off, so a serial pipeline keeps a
     # valid candidate
     overlap_opts = (False, True) if (ob_auto or overlap) else (False,)
-    ready_fn, t_bwd = bwd_ready_fn(cfg, batch, seq, spec.device)
+    ready_fn, t_bwd = bwd_ready_fn(cfg, batch, seq, spec.device, tp)
     tuned = autotune(spec, d, compressors=[compressor],
                      block_sizes=[block_size], topologies=topos,
                      compressor_kwargs=compressor_kwargs,
@@ -244,14 +255,15 @@ def run_plans(optim, d_pad: int, dp_axes, dp_sizes, topology: str):
 
 
 def plan_ready_times(cfg, d: int, n_dp: int, block_size: int,
-                     n_buckets: int, device, batch: int, seq: int):
+                     n_buckets: int, device, batch: int, seq: int,
+                     tp: int = 1):
     """Per-bucket predicted backward ready times of this run's bucket
     partition (None unless bucketed) and the backward's seconds: the list
     the plan telemetry, the memory ledger and the profile fold share."""
     if n_buckets <= 1:
         return None, 0.0
     from repro_torch.pipeline import Bucketer
-    ready_fn, t_bwd = bwd_ready_fn(cfg, batch, seq, device)
+    ready_fn, t_bwd = bwd_ready_fn(cfg, batch, seq, device, tp)
     bk = Bucketer.for_exchange(d, max(n_dp, 1), block_size, n_buckets)
     return [float(r) for r in ready_fn(tuple(bk.offsets), d)], t_bwd
 
@@ -267,7 +279,7 @@ def emit_plan_telemetry(sink, tracer, optim, cfg, plans, dp_sizes,
                         device_spec, dev, drift_probe: bool = False,
                         telemetry_dir: Optional[str] = None,
                         overlap_bwd: bool = False, batch: int = 8,
-                        seq: int = 128) -> None:
+                        seq: int = 128, tp: int = 1) -> None:
     """The run's ``plan`` events (per-tier bytes and predicted α-β times
     of the (warmup, compressed) ``plans``; under ``overlap_bwd`` the
     per-bucket backward ready times too) and, with ``drift_probe``, each
@@ -284,7 +296,7 @@ def emit_plan_telemetry(sink, tracer, optim, cfg, plans, dp_sizes,
         extra = {}
         if overlap_bwd and stage == "compressed":
             ready, t_bwd = plan_ready_times(cfg, p.d, n_dp, block_size, nb,
-                                            spec.device, batch, seq)
+                                            spec.device, batch, seq, tp)
             if ready is not None:
                 extra = {"overlap_bwd": True, "t_bwd": float(t_bwd),
                          "ready_times": ready}
@@ -350,7 +362,7 @@ def fold_profile_window(trace_path: str, n_steps: int, optim, cfg, plans,
                         cluster: str, device_spec, device: str,
                         stage: str = "compressed",
                         overlap_bwd: bool = False, batch: int = 8,
-                        seq: int = 128) -> dict:
+                        seq: int = 128, tp: int = 1) -> dict:
     """Fold the captured trace onto the plan grid and build the
     ``profile`` event's fields (:func:`repro_torch.obs.profile.attribution`):
     the measured cells, the overlap audit against the predicted
@@ -370,7 +382,7 @@ def fold_profile_window(trace_path: str, n_steps: int, optim, cfg, plans,
     if overlap_bwd and stage == "compressed":
         ready, _ = plan_ready_times(cfg, plan.d, n_dp, block_size,
                                     bucketer.n_buckets, spec.device, batch,
-                                    seq)
+                                    seq, tp)
     predicted = pipeline_breakdown(
         lower_to_pipelined(plan, comp, bucketer, use_kernel=(
             spec.device.runs_kernels and comp is not None
@@ -389,7 +401,7 @@ def fold_profile_window(trace_path: str, n_steps: int, optim, cfg, plans,
 def build_memory_ledger(optim, cfg, comp_plan, dp_sizes, topology: str,
                         n_buckets: int, block_size: int, cluster: str,
                         device_spec, layout: str, batch: int, seq: int,
-                        overlap_bwd: bool = False):
+                        overlap_bwd: bool = False, tp: int = 1):
     """The predicted per-rank :class:`~repro_torch.obs.mem.MemoryLedger`
     of this run, priced against the device spec's capacity; under
     ``overlap_bwd`` the wire watermark is taken over the four-stream
@@ -399,12 +411,12 @@ def build_memory_ledger(optim, cfg, comp_plan, dp_sizes, topology: str,
     ready = None
     if overlap_bwd:
         ready, _ = plan_ready_times(cfg, comp_plan.d, n_dp, block_size,
-                                    n_buckets, spec.device, batch, seq)
+                                    n_buckets, spec.device, batch, seq, tp)
     return predict_ledger(
         cfg, dp_sizes, optim=optim, layout=layout, topology=topology,
         block=block_size, n_buckets=n_buckets, batch_global=batch,
         seq=seq, plan=comp_plan, spec=spec,
-        capacity_bytes=capacity_of(spec.device), ready=ready)
+        capacity_bytes=capacity_of(spec.device), ready=ready, tp=tp)
 
 
 def emit_memory_attribution(programs: dict, sink, ledger,
@@ -441,7 +453,7 @@ def emit_profile_ledger(trace_path: str, profile_dir: str, sink, optim,
                         bench: Optional[str], arch: str, rank: int = 0,
                         extra_metrics: Optional[dict] = None,
                         overlap_bwd: bool = False, batch: int = 8,
-                        seq: int = 128) -> dict:
+                        seq: int = 128, tp: int = 1) -> dict:
     """The fold (:func:`fold_profile_window`), the ``profile`` event and,
     on rank 0, the ``BENCH_<name>.json`` ledger record."""
     from repro_torch.obs.bench import bench_record, write_ledger
@@ -449,7 +461,7 @@ def emit_profile_ledger(trace_path: str, profile_dir: str, sink, optim,
                                  dp_sizes, n_buckets, block_size, cluster,
                                  device_spec, device, stage=stage,
                                  overlap_bwd=overlap_bwd, batch=batch,
-                                 seq=seq)
+                                 seq=seq, tp=tp)
     sink.emit("profile", **fields)
     metrics = {k: float(fields[k]) for k in
                ("s_per_step", "comm_fraction", "overlap_efficiency",
@@ -496,11 +508,12 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         log_every: int = 1, log_file: Optional[str] = None,
         profile: Optional[str] = None, profile_steps: int = 4,
         memory: str = "off", audit: str = "off", audit_every: int = 10,
-        drift_probe: bool = False, bench: Optional[str] = None) -> dict:
+        drift_probe: bool = False, bench: Optional[str] = None,
+        seq_parallel: bool = False) -> dict:
     """Train until step ``steps``; returns ``{"history", "launches", "d",
     "d_pad", "state", "optimizer", "layout", "start_step",
     "checkpoint_s", "topology", "n_buckets", "overlap_bwd", "plan",
-    "schedule"}`` (``checkpoint_s``: the seconds of the resume's load and
+    "schedule", "tp"}`` (``checkpoint_s``: the seconds of the resume's load and
     the last save, host clock; ``plan``: the compressed exchange's plan
     name; ``schedule``: the tuner's pick, a ``plan.tune.Candidate``, when
     an axis was ``auto``, else None).
@@ -508,8 +521,10 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     ``warmup_steps`` is the manual T_w; ``None`` (or an ``auto`` recipe)
     selects the paper's Sec. 7.1 variance-ratio rule, as in the
     reference driver.  ``batch`` is the global batch, split over the dp
-    ranks of an initialised process group.  ``mesh`` (default: one dp
-    axis over the process group) is a ``--mesh`` spelling; ``topology``
+    ranks of an initialised process group (the model ranks of one dp rank
+    take the same rows).  ``mesh`` (default: one dp axis over the process
+    group) is a ``--mesh`` spelling; ``seq_parallel`` runs a model axis
+    above 1 with Megatron sequence parallelism; ``topology``
     and ``pipeline`` default to the recipe's (``"flat"`` and ``"off"``
     but for the auto recipes).  ``auto`` values are resolved by the plan
     tuner (:func:`resolve_schedule`) against ``cluster`` and
@@ -546,9 +561,11 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     if compressor:
         spec = dataclasses.replace(spec, compressor=compressor)
     spec = dataclasses.replace(spec, block_size=block_size)
-    n_dp = dist.get_world_size() if dist.is_initialized() else 1
+    world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    dpm = build_mesh(mesh if mesh is not None else str(n_dp), dev.type)
+    dpm = build_mesh(mesh if mesh is not None else str(world))
+    n_dp, tp, tp_axes = dpm.n_dp, dpm.tp, dpm.tp_axes
+    dp_rank, model_rank = dpm.dp_rank, dpm.model_rank
     topology, n_buckets, overlap, tuned = resolve_schedule(
         spec.topology if topology is None else topology,
         spec.pipeline if pipeline is None else pipeline, overlap_bwd,
@@ -556,7 +573,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         compressor=spec.compressor, block_size=block_size,
         compressor_kwargs=spec.compressor_kwargs,
         device_spec=device_spec, batch=batch, seq=seq,
-        verbose=verbose and rank == 0)
+        verbose=verbose and rank == 0, tp=tp)
     dp_axes, pod_axes, n_inner, n_outer = pod_split(dpm.axes, dpm.sizes) \
         if n_dp > 1 else ((), (), 1, 1)
     if topology == "hier" and n_outer == 1:
@@ -568,7 +585,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
                           **(spec.optimizer_kwargs or {}))
     layout = "local" if optim.may_skip_sync else "replicated"
     hier = topology == "hier"
-    d_pad = flat_dim(cfg, n_dp, block_size)
+    d_pad = flat_dim(cfg, n_dp, block_size, tp)
     # the bucket count the executor runs (clamped to the alignment units):
     # it fixes the EF slots' layout that checkpoints re-key
     n_buckets = len(bucket_sizes_for(d_pad, n_dp, block_size, n_buckets))
@@ -577,8 +594,10 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     plan_name = comp_plan.name if n_buckets == 1 else \
         f"pipe({comp_plan.name})x{n_buckets}"
     if verbose and rank == 0:
-        print(f"[plan] mesh {'x'.join(map(str, dpm.sizes))} "
-              f"{dpm.axes} | warmup {warm_plan.name} | compressed "
+        print(f"[plan] mesh {'x'.join(map(str, dpm.sizes))}"
+              + (f"x{tp} {dpm.axes + tp_axes}" if tp > 1
+                 else f" {dpm.axes}")
+              + f" | warmup {warm_plan.name} | compressed "
               f"{plan_name} | overlap-bwd "
               f"{'on' if overlap and n_buckets > 1 else 'off'}"
               + (" (needs more than one bucket)"
@@ -587,39 +606,59 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
               + f" | wire bytes a rank and step: warmup "
               f"{warm_plan.wire_send_bytes():.0f}, compressed "
               f"{comp_plan.wire_send_bytes():.0f}", flush=True)
-    params = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    # every model rank draws the global tree leaf by leaf and keeps its
+    # shard: one seed, one global model
+    params = init_params(cfg, torch.Generator().manual_seed(seed), dev,
+                         tp=tp, rank=model_rank if tp > 1 else None)
     ts = init_train_state(cfg, params, optim, block_size, n_dp, dev,
-                          layout=layout, n_inner=n_inner if hier else None)
+                          layout=layout, n_inner=n_inner if hier else None,
+                          ctx=dpm.parallel_ctx(), seq_parallel=seq_parallel)
     del params
     slots = optim.state_slots(layout)
     state_ctx = StateLayout(
         d=d_pad, n_dp=n_dp, n_srv=n_inner if hier else n_dp,
         n_outer=n_outer if hier else 1, n_segments=ts.segs.n,
-        dp_sizes=dpm.sizes, tp=1)
-    shapes = leaf_shapes(cfg)
+        dp_sizes=dpm.sizes, tp=tp)
+    shapes = leaf_shapes(cfg, tp)
+    specs = param_specs(cfg)
     start_step, io_s = 0, {}
     if resume:
         t0 = time.perf_counter()
         (params, ts.opt), start_step = load_train_state(
-            resume, params_from_flat(ts.x, shapes), ts.opt, slots=slots,
-            ctx=state_ctx, n_buckets=n_buckets, block=block_size, rank=rank)
+            resume, {p: torch.zeros(()).expand(shp)
+                     for p, shp in global_leaf_shapes(cfg, tp)}, ts.opt,
+            slots=slots, ctx=state_ctx, n_buckets=n_buckets,
+            block=block_size, rank=dp_rank, model_rank=model_rank)
         with torch.no_grad():
-            ts.x[:ts.d].copy_(flat_from_params(params))
+            ts.x[:ts.d].copy_(flat_from_params(
+                shard_params(params, specs, tp, model_rank)))
         del params
         io_s["load"] = time.perf_counter() - t0
         if verbose and rank == 0:
             print(f"resumed from {resume} at step {start_step}", flush=True)
 
+    def global_params():
+        """The global tree: every model rank's flat vector gathered over
+        the model group, cut into its shards and joined."""
+        if tp == 1:
+            return params_from_flat(ts.x, shapes)
+        from repro_torch.plan.executor import all_gather_into, group_of
+        flat = torch.empty((tp, ts.x.shape[0]), dtype=ts.x.dtype,
+                           device=ts.x.device)
+        all_gather_into(flat.view(-1), ts.x, group=group_of(tp_axes))
+        return unshard_params([params_from_flat(f, shapes) for f in flat],
+                              specs)
+
     def save(step: int) -> None:
         t0 = time.perf_counter()
-        save_train_state(ckpt, params_from_flat(ts.x, shapes), ts.opt, step,
+        save_train_state(ckpt, global_params(), ts.opt, step,
                          slots=slots, ctx=state_ctx, n_buckets=n_buckets,
                          block=block_size, dp_axes=dpm.axes if n_dp > 1
-                         else ())
+                         else (), tp_axes=tp_axes)
         io_s["save"] = time.perf_counter() - t0
 
     stream = SyntheticStream(cfg, InputShape("custom", seq, batch, "train"),
-                             seed=seed, shard=rank, n_shards=n_dp,
+                             seed=seed, shard=dp_rank, n_shards=n_dp,
                              device=dev)
     manual = warmup_steps is not None and spec.switch_mode == "steps"
     switch = WarmupSwitch(
@@ -652,7 +691,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
                             n_buckets, block_size, cluster, device_spec,
                             dev, drift_probe=drift_probe,
                             telemetry_dir=telemetry, overlap_bwd=overlap_on,
-                            batch=batch, seq=seq)
+                            batch=batch, seq=seq, tp=tp)
     memory_on = memory == "on" and sink.enabled
     mem_ledger = mem_sampler = None
     mem_programs = {}        # step program -> CompiledMemory
@@ -661,7 +700,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         mem_ledger = build_memory_ledger(
             optim, cfg, comp_plan, dpm.sizes, topology, n_buckets,
             block_size, cluster, device_spec, layout, batch, seq,
-            overlap_bwd=overlap_on)
+            overlap_bwd=overlap_on, tp=tp)
         sink.emit("memory", **mem_ledger.event_fields())
         mem_sampler = LiveSampler(dev)
 
@@ -820,7 +859,8 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
                     if audit_probe is None:
                         audit_probe = make_audit_probe(
                             ts, optim, *exchange_axes(topology, dp_axes,
-                                                      pod_axes))
+                                                      pod_axes),
+                            tp_axes=tp_axes)
                         shadow_v = ts.opt.v.clone()   # seed the shadow EMA
                     # before the step: the (params, state, batch) it takes
                     shadow_v, astats = audit_probe(batch_t, shadow_v)
@@ -839,7 +879,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
                                      stage, dp_axes, sync=sync,
                                      pod_axes=pod_axes, topology=topology,
                                      n_buckets=n_buckets,
-                                     overlap_bwd=overlap)
+                                     overlap_bwd=overlap, tp_axes=tp_axes)
             if getattr(reader, "memory", None) is not None:
                 mem_programs[program] = reader.memory
             mbuf.push(step, {k: metrics[k] for k in sorted(metrics)})
@@ -883,7 +923,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
                     dev.type, n_steps=steps - prof_start, stage=stage,
                     bench=bench, arch=arch, rank=rank,
                     extra_metrics=mem_extra, overlap_bwd=overlap_on,
-                    batch=batch, seq=seq)
+                    batch=batch, seq=seq, tp=tp)
             except ValueError as e:   # a failed fold must not lose the run
                 sink.emit("warning", what="profile.fold",
                           detail=str(e)[:400])
@@ -915,7 +955,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
             "checkpoint_s": io_s, "topology": topology,
             "n_buckets": n_buckets, "overlap_bwd": overlap,
             "plan": plan_name,
-            "schedule": tuned.best if tuned else None,
+            "schedule": tuned.best if tuned else None, "tp": tp,
             "telemetry": sink.path, "profile": profile_fields}
 
 
@@ -952,7 +992,7 @@ def main(argv=None):
                     choices=[None, "warmup", "compressed"],
                     help="force every step's stage")
     ap.add_argument("--mesh", default=None,
-                    help="N, Nx1 or PxNx1 (pods x data x model = 1); "
+                    help="N, NxT or PxNxT (pods x data x model); "
                          "default: one dp axis over WORLD_SIZE ranks")
     ap.add_argument("--topology", default=None,
                     choices=[None, "flat", "hier", "auto"],

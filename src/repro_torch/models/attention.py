@@ -1,6 +1,18 @@
-"""Self-attention at tp=1, as ``repro/models/attention.py``: projections,
-rotary embeddings, GQA head repetition, causal / sliding-window masks, the
+"""Self-attention, as ``repro/models/attention.py``: projections, rotary
+embeddings, GQA head repetition, causal / sliding-window masks, the
 prefill paths and KV-cached decode.
+
+Tensor parallelism (training; serving runs at tp = 1), this
+rank's shard of the reference's global layout at tp (``shard_dims``):
+  wq (d, Hq_l * hd)    column-parallel, Hq_l = padded_heads(tp) / tp
+  wk, wv (d, Hkv_l * hd)  column-parallel over the kv heads when
+                       n_kv >= tp; otherwise each rank holds one kv head,
+                       duplicated over groups of tp / n_kv ranks (the
+                       global columns repeat each head), its gradient
+                       summed within the group (``grouped_param``)
+  wo (Hq_l * hd, d)    row-parallel, closed by ``f_reduce``
+Rank r holds q heads [r * Hq_l, (r + 1) * Hq_l) and exactly the kv heads
+they read.
 
 Prefill (``attn_forward``) takes one of the reference's paths by
 ``cfg.attn_impl``:
@@ -24,16 +36,47 @@ the rescaled sums and outputs.  A windowed (ring) cache is never split.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attn import ops as fa
-from repro_torch.models.common import apply_rope, dense, rope_tables
+from repro_torch.models.common import (NO_TP, ParallelCtx, apply_rope,
+                                       dense, f_reduce, g_copy,
+                                       grouped_param, rope_tables)
 
 NEG_INF = -1e30
+
+
+def shard_dims(cfg: ArchConfig, tp: int = 1) -> Tuple[int, int, int]:
+    """(q heads a rank, kv heads a rank, kv-duplicate group size)."""
+    hq = cfg.padded_heads(tp) // tp
+    if cfg.n_kv_heads >= tp:
+        if cfg.n_kv_heads % tp:
+            raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over "
+                             f"{tp} model ranks")
+        return hq, cfg.n_kv_heads // tp, 1
+    if tp % cfg.n_kv_heads:
+        raise ValueError(f"{tp} model ranks do not split into groups of "
+                         f"the {cfg.n_kv_heads} kv heads")
+    return hq, 1, tp // cfg.n_kv_heads
+
+
+def attn_shapes(cfg: ArchConfig, tp: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """Global shapes of one attention layer's leaves at ``tp``: the q heads
+    padded to a multiple of tp, the kv head columns repeated when
+    n_kv < tp (head order 0, 0, 1, 1, ...), so that a contiguous shard
+    gives each rank its own copy."""
+    hd, d = cfg.head_dim, cfg.d_model
+    hq, hkv, _ = shard_dims(cfg, tp)
+    return {"wq": (d, tp * hq * hd), "wk": (d, tp * hkv * hd),
+            "wv": (d, tp * hkv * hd), "wo": (tp * hq * hd, d)}
+
+
+# the dim of each leaf split over the model axis
+ATTN_SPECS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -105,28 +148,37 @@ def _sdpa_chunked(q, k, v, q_offset: int, window: Optional[int],
     return out.transpose(1, 2).to(q.dtype)                 # (b,sq,h,hd)
 
 
-def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """Project + rope. x: (B, S, d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
+def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+         ctx: ParallelCtx = NO_TP, skip_gcopy: bool = False):
+    """Project + rope. x: (B, S, d) -> q (B,S,Hq_l,hd), k/v (B,S,Hkv_l,hd).
+    ``skip_gcopy``: x came through ``sp_gather``, whose backward already
+    sums the ranks' partial cotangents."""
     hd = cfg.head_dim
+    hq, hkv, rep = shard_dims(cfg, ctx.tp)
     lead = x.shape[:-1]
-    q = dense(x, p["wq"]).reshape(*lead, cfg.n_heads, hd)
-    k = dense(x, p["wk"]).reshape(*lead, cfg.n_kv_heads, hd)
-    v = dense(x, p["wv"]).reshape(*lead, cfg.n_kv_heads, hd)
+    xin = x if skip_gcopy else g_copy(x, ctx)
+    q = dense(xin, p["wq"]).reshape(*lead, hq, hd)
+    k = dense(xin, grouped_param(p["wk"], ctx, rep)).reshape(*lead, hkv, hd)
+    v = dense(xin, grouped_param(p["wv"], ctx, rep)).reshape(*lead, hkv, hd)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def attn_forward(p, x: torch.Tensor, cfg: ArchConfig,
-                 return_kv: bool = False):
+                 return_kv: bool = False, ctx: ParallelCtx = NO_TP,
+                 outer: str = "tp"):
     """Training/prefill self-attention. x: (B, S, d) -> (B, S, d).
 
     ``return_kv=True`` also returns the pre-repeat (k, v), each
-    (B, S, Hkv, hd), so a prefill can seed the decode cache."""
+    (B, S, Hkv_l, hd), so a prefill can seed the decode cache.
+    ``outer="none"`` (sequence parallelism): the caller owns the boundary
+    collectives; x is already gathered and the output is this rank's
+    partial row-parallel sum (no ``f_reduce``)."""
     b, s, _ = x.shape
-    hq = cfg.n_heads
+    hq, hkv, _ = shard_dims(cfg, ctx.tp)
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k0, v0 = _qkv(p, x, cfg, positions)
-    n_rep = hq // cfg.n_kv_heads
+    q, k0, v0 = _qkv(p, x, cfg, positions, ctx, skip_gcopy=outer == "none")
+    n_rep = hq // hkv
     k, v = _repeat_kv(k0, n_rep), _repeat_kv(v0, n_rep)
     use_chunked = (cfg.attn_impl == "chunked" or
                    (cfg.attn_impl == "auto" and s > 4 * cfg.attn_chunk))
@@ -143,6 +195,8 @@ def attn_forward(p, x: torch.Tensor, cfg: ArchConfig,
             mask = _causal_mask(s, s, 0, cfg.window, cfg.causal, x.device)
         o = _sdpa(q, k, v, mask)
     out = dense(o.reshape(b, s, hq * cfg.head_dim), p["wo"])
+    if outer != "none":
+        out = f_reduce(out, ctx)
     if return_kv:
         return out, (k0, v0)
     return out

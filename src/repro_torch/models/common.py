@@ -1,11 +1,230 @@
-"""Shared layers (tensor parallelism of the reference is tp=1 here, so its
-collective helpers are identities and are not ported)."""
+"""Tensor-parallel context, the Megatron collectives, and shared layers.
+
+The model code runs per rank: each model rank holds its shard of every
+parameter the reference shards over the ``model`` axis, and the
+collectives that join the shards are placed by hand, each with its
+hand-written transpose (a ``torch.autograd.Function``), as the reference's
+``custom_vjp``s:
+
+  ``g_copy``        identity fwd / all-reduce bwd (Megatron's g: where a
+                    replicated activation enters column-parallel compute)
+  ``f_reduce``      all-reduce fwd / identity bwd (Megatron's f-bar:
+                    closes a row-parallel matmul)
+  ``rep_param``     a parameter replicated over the model axis (norm
+                    scales, routers): identity under TP, all-reduce of its
+                    gradient under SP
+  ``grouped_param`` a parameter duplicated over groups of ``rep`` model
+                    ranks (kv projections when n_kv_heads < tp): gradient
+                    all-reduced within the group
+  ``sp_gather`` / ``sp_scatter``  the sequence-parallel boundary pair:
+                    all-gather fwd / reduce-scatter bwd along the sequence,
+                    and the reverse
+  ``sp_slice``      this rank's chunk of a replicated sequence
+  ``pmean``         mean over the model axis, all-reduce / tp both ways
+
+A forward all-reduce works on a copy, never on a tensor autograd saved.
+With ``ParallelCtx()`` (one model rank) every collective is the identity,
+so the same model code runs at tp = 1 and under any mesh.
+"""
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Tuple
+import dataclasses
+from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """This rank's view of the model axis.
+
+    ``group``: the model axis's process group (None: the default group);
+    ``tp``: its rank count (1: no tensor parallelism, every collective
+    the identity); ``sp``: Megatron sequence parallelism (the residual
+    stream between blocks split along the sequence over the model ranks);
+    ``kv_groups``: ``(rep, group)`` pairs, this rank's group of ``rep``
+    contiguous model ranks for every ``rep`` that divides ``tp`` (the
+    kv-duplicate groups; ``launch.mesh.build_mesh`` makes them once)."""
+
+    group: Optional[object] = None
+    tp: int = 1
+    sp: bool = False
+    kv_groups: Tuple[Tuple[int, object], ...] = ()
+
+    def kv_group(self, rep: int):
+        """The process group of this rank's ``rep`` duplicate ranks."""
+        if rep == self.tp:
+            return self.group
+        for r, g in self.kv_groups:
+            if r == rep:
+                return g
+        raise KeyError(f"no kv-duplicate group of {rep} ranks on a model "
+                       f"axis of {self.tp} (build_mesh makes them)")
+
+
+NO_TP = ParallelCtx()
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """The all-reduce of a contiguous copy of ``x``."""
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The sum over the ranks of ``x``, this rank's chunk along ``dim``."""
+    xt = x.movedim(dim, 0).contiguous()
+    if xt.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+class _GCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_reduce(ct, ctx.group), None
+
+
+class _FReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_reduce(x, group) / n
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_reduce(ct, ctx.group) / ctx.n, None, None
+
+
+class _SpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _scatter(ct, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class _SpScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _scatter(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _gather(ct, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+def g_copy(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """Identity fwd; bwd sums the gradient over the model axis."""
+    if ctx.tp == 1:
+        return x
+    return _GCopy.apply(x, ctx.group)
+
+
+def f_reduce(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """Sum over the model axis fwd; identity bwd."""
+    if ctx.tp == 1:
+        return x
+    return _FReduce.apply(x, ctx.group)
+
+
+def pmean(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """Mean over the model axis; the cotangent is averaged the same way
+    (the reference's ``pmean`` under ``shard_map``)."""
+    if ctx.tp == 1:
+        return x
+    return _PMean.apply(x, ctx.group, ctx.tp)
+
+
+def rep_param(w: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """A parameter replicated over the model axis (norm scales, routers).
+
+    Under TP (``ctx.sp`` False) its gradient takes NO all-reduce: every
+    consumer of a replicated activation enters sharded compute through
+    ``g_copy``, whose backward already made the residual stream's
+    cotangent complete and the same on every model rank; summing again
+    would count it tp times.  Under SP every rank holds its own tokens, so
+    each rank's gradient is partial and the all-reduce is needed."""
+    if ctx.tp == 1 or not ctx.sp:
+        return w
+    return _GCopy.apply(w, ctx.group)
+
+
+def grouped_param(w: torch.Tensor, ctx: ParallelCtx, rep: int
+                  ) -> torch.Tensor:
+    """A parameter duplicated over contiguous groups of ``rep`` model ranks
+    (kv projections when n_kv_heads < tp): its gradient is summed within
+    the group, so the copies stay equal."""
+    if ctx.tp == 1 or rep <= 1:
+        return w
+    return _GCopy.apply(w, ctx.kv_group(rep))
+
+
+def tp_rank(ctx: ParallelCtx) -> int:
+    """This rank's index on the model axis (0 without TP)."""
+    return dist.get_rank(ctx.group) if ctx.tp > 1 else 0
+
+
+def sp_gather(x: torch.Tensor, ctx: ParallelCtx, dim: int = 1
+              ) -> torch.Tensor:
+    """(..., S/tp, ...) -> (..., S, ...): all-gather fwd, reduce-scatter
+    bwd."""
+    if ctx.tp == 1:
+        return x
+    return _SpGather.apply(x, ctx.group, ctx.tp, dim)
+
+
+def sp_scatter(x: torch.Tensor, ctx: ParallelCtx, dim: int = 1
+               ) -> torch.Tensor:
+    """Partial (..., S, ...) -> summed (..., S/tp, ...): reduce-scatter fwd,
+    all-gather bwd.  Takes f_reduce's place at a sequence-parallel
+    boundary: the same sum, half the wire bytes."""
+    if ctx.tp == 1:
+        return x
+    return _SpScatter.apply(x, ctx.group, ctx.tp, dim)
+
+
+def sp_slice(x: torch.Tensor, ctx: ParallelCtx, dim: int = 1
+             ) -> torch.Tensor:
+    """This rank's chunk of the sequence of a replicated tensor."""
+    if ctx.tp == 1:
+        return x
+    size = x.shape[dim] // ctx.tp
+    return x.narrow(dim, tp_rank(ctx) * size, size)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5

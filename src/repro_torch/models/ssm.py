@@ -1,5 +1,5 @@
-"""Mamba-1 selective-SSM block at tp=1, as ``repro/models/ssm.py``: the
-training / prefill forward and the one-token decode against its state.
+"""Mamba-1 selective-SSM block, as ``repro/models/ssm.py``: the training /
+prefill forward and the one-token decode against its state.
 
 Parameters (d = d_model, di = d_inner, N = ssm_state, R = dt_rank):
   in_proj_x, in_proj_z (d, di)   the x and gate projections (separate leaves)
@@ -13,8 +13,14 @@ The selective scan is a loop over the sequence, in f32:
 ``h = exp(dt * A) * h + (dt * x) * B``, ``y = h . C``; then ``y + x * D``,
 gated by ``silu(z)``.  The decay ``exp(dt * A)`` and the input ``(dt * x)
 * B`` of every timestep are elementwise and computed before the loop, so
-each step of the loop is one fused multiply-add.  The reference's
-``f_reduce`` / ``g_copy`` collectives are identities at tp = 1.
+each step of the loop is one fused multiply-add.
+
+Tensor parallelism (training; serving runs at tp = 1) splits d_inner over
+the model ranks: in_proj_x / in_proj_z, conv_w, dt_proj, dt_bias, A_log
+and D are this rank's channels; x_proj is row-parallel, closed by an
+``f_reduce`` so that (dt_lowrank, B, C) are whole on every rank, then
+``g_copy``'d into the rank's own channels; out_proj is row-parallel.  The
+scan is local: a rank's state is (B, di / tp, N).
 
 The decode state of a sequence is ``{"h": (B, di, N) f32, "conv": (B, K-1,
 di)}``: the scan's last state and the last K-1 raw (pre-conv) inputs.
@@ -33,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import dense
+from repro_torch.models.common import (NO_TP, ParallelCtx, dense, f_reduce,
+                                       g_copy)
 
 
 # the leaves whose initialisation is not N(0, 1/d_in)
@@ -42,6 +49,9 @@ SPECIAL_LEAVES = ("A_log", "D", "conv_w", "dt_bias")
 F32_LEAVES = ("A_log", "D", "dt_bias")
 # timesteps the prefill's scan materialises at once
 SCAN_CHUNK = 256
+# the dim of each leaf split over the model axis
+SSM_SPECS = {"in_proj_x": 1, "in_proj_z": 1, "conv_w": 1, "x_proj": 0,
+             "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
 
 
 def init_leaf(leaf: str, shape, generator: torch.Generator) -> torch.Tensor:
@@ -77,11 +87,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _ssm_params(p, x_in: torch.Tensor, cfg: ArchConfig):
+def _ssm_params(p, x_in: torch.Tensor, cfg: ArchConfig,
+                ctx: ParallelCtx = NO_TP):
     """x_in (B, S, di) -> dt (B, S, di) f32, B and C (B, S, N) f32, and
-    A = -exp(A_log) (di, N)."""
+    A = -exp(A_log) (di, N) (di: this rank's channels)."""
     n, dtr = cfg.ssm_state, cfg.dt_rank
-    dbc = dense(x_in, p["x_proj"])
+    dbc = g_copy(f_reduce(dense(x_in, p["x_proj"]), ctx), ctx)
     dt_low, b_mat, c_mat = torch.split(dbc, [dtr, n, n], dim=-1)
     dt = dense(dt_low, p["dt_proj"])
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
@@ -126,26 +137,31 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def ssm_forward(p, x: torch.Tensor, cfg: ArchConfig,
-                return_state: bool = False):
+                return_state: bool = False, ctx: ParallelCtx = NO_TP,
+                outer: str = "tp"):
     """Training / prefill forward. x: (B, S, d) -> (B, S, d).
 
     ``return_state=True`` also returns the decode state ``{"h", "conv"}``
     after the sequence (the prefill; it needs S >= ssm_conv - 1, the
-    length of the conv tail)."""
+    length of the conv tail).  ``outer="none"`` (sequence parallelism): x
+    already gathered, the output this rank's partial sum."""
     dt_ = x.dtype
     s, k = x.shape[1], cfg.ssm_conv
     if return_state and s < k - 1:
         raise ValueError(f"a prefill of {s} tokens is shorter than the conv "
                          f"tail of {k - 1}")
-    xraw = dense(x, p["in_proj_x"])                        # (B, S, di)
-    z = dense(x, p["in_proj_z"])
+    xin = x if outer == "none" else g_copy(x, ctx)
+    xraw = dense(xin, p["in_proj_x"])                      # (B, S, di)
+    z = dense(xin, p["in_proj_z"])
     xi = F.silu(_causal_conv(xraw, p["conv_w"].to(dt_)))
-    dt, b_mat, c_mat, a = _ssm_params(p, xi, cfg)
+    dt, b_mat, c_mat, a = _ssm_params(p, xi, cfg, ctx)
     xf = xi.to(torch.float32)
     y, h = selective_scan(xf, dt, a, b_mat, c_mat,
                           SCAN_CHUNK if return_state else None)
     y = (y + xf * p["D"]).to(dt_) * F.silu(z)
     out = dense(y, p["out_proj"])
+    if outer != "none":
+        out = f_reduce(out, ctx)
     if return_state:
         return out, {"h": h, "conv": xraw[:, s - (k - 1):]}
     return out

@@ -1,8 +1,9 @@
 """The transformer: parameter layout, init, the training module and loss
-(every family at tp=1: the BERT encoder, the dense and MoE decoders, the
-Mamba-1 SSM, the Jamba hybrid, the audio and VLM input stubs), and the
-serving forward passes of every decoding family (``prefill``,
-``init_caches``, ``cache_specs``, ``decode_step``).
+(every family: the BERT encoder, the dense and MoE decoders, the Mamba-1
+SSM, the Jamba hybrid, the audio and VLM input stubs, at any tensor-
+parallel degree), and the serving forward passes of every decoding family
+at tp = 1 (``prefill``, ``init_caches``, ``cache_specs``,
+``decode_step``).
 
 Parameters keep the reference's shapes and order: ``(d_in, d_out)``
 weights, the per-layer leaves stacked on a leading superblock axis under
@@ -14,6 +15,20 @@ and the ``ravel_pytree`` order of ``repro`` (sorted keys at every level:
 holds every parameter at the same offset as the reference's flat vector,
 and the 4096-element scale blocks of the compressor cover the same
 elements.
+
+Tensor parallelism: the reference's global tree depends on tp (q heads
+padded to a multiple of tp, the vocab to a multiple of 8 * tp, kv heads
+repeated when n_kv < tp, MoE ff slices when E < tp; ``global_leaf_shapes``)
+and ``param_specs`` names, for every leaf, the dim split over the model
+axis (None: replicated).  A model rank holds the contiguous shard of each
+leaf (``leaf_shapes(cfg, tp)``), and its flat vector is the ravel-order
+concatenation of its shards, as the reference's per-rank ``ravel_pytree``
+inside ``shard_map``.  The forward places the Megatron collectives of
+``models.common`` by hand (``ParallelCtx``): the embedding and the LM head
+are vocab-parallel (the cross-entropy takes the max over the model axis
+and masks the padded columns), and under sequence parallelism the
+residual stream between blocks is split along the sequence, each block
+boundary an all-gather / reduce-scatter pair.
 
 :class:`Transformer` is built over such a flat vector: each of its
 ``nn.Parameter``s is a view of it (superblock ``s`` of a stacked leaf is
@@ -43,15 +58,21 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.convert import shard_leaf
 from repro_torch.models import attention as A
+from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import attn_forward
-from repro_torch.models.common import dense, rms_norm
+from repro_torch.models.common import (NO_TP, ParallelCtx, dense, f_reduce,
+                                       g_copy, rep_param, rms_norm,
+                                       sp_gather, sp_scatter, sp_slice,
+                                       tp_rank)
 from repro_torch.models.mlp import mlp_forward, moe_forward
 
 Shapes = List[Tuple[str, Tuple[int, ...]]]
@@ -80,14 +101,14 @@ def n_superblocks(cfg: ArchConfig) -> int:
 
 
 def _layer_shapes(cfg: ArchConfig, n: int, mixer: str,
-                  ffn: Optional[str]) -> dict:
-    """The leaves of one layer kind, stacked over ``n`` superblocks."""
+                  ffn: Optional[str], tp: int = 1) -> dict:
+    """The global leaves of one layer kind at ``tp``, stacked over ``n``
+    superblocks."""
     d, ff = cfg.d_model, cfg.d_ff
     tree = {"norm1": (n, d)}
     if mixer == "attn":
-        q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-        tree["mixer"] = {"wq": (n, d, q), "wk": (n, d, kv),
-                         "wv": (n, d, kv), "wo": (n, q, d)}
+        tree["mixer"] = {k: (n,) + v
+                         for k, v in A.attn_shapes(cfg, tp).items()}
     else:
         di, st, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
         tree["mixer"] = {
@@ -97,9 +118,7 @@ def _layer_shapes(cfg: ArchConfig, n: int, mixer: str,
             "in_proj_x": (n, d, di), "in_proj_z": (n, d, di),
             "out_proj": (n, di, d), "x_proj": (n, di, r + 2 * st)}
     if ffn == "moe":
-        e = cfg.n_experts
-        tree["ffn"] = {"router": (n, d, e), "wg": (n, e, d, ff),
-                       "wu": (n, e, d, ff), "wd": (n, e, ff, d)}
+        tree["ffn"] = {k: (n,) + v for k, v in M.moe_shapes(cfg, tp).items()}
     elif ffn == "dense":
         tree["ffn"] = {"wg": (n, d, ff), "wd": (n, ff, d)}
         if cfg.mlp_kind == "swiglu":
@@ -109,53 +128,127 @@ def _layer_shapes(cfg: ArchConfig, n: int, mixer: str,
     return tree
 
 
-def leaf_shapes(cfg: ArchConfig) -> Shapes:
-    """(dotted path, shape) of every parameter leaf in ravel order."""
+def _layer_specs(cfg: ArchConfig, mixer: str, ffn: Optional[str]) -> dict:
+    """The split dim of each leaf of one layer kind, stacked (so every
+    split dim moves one to the right)."""
+    def stacked(specs):
+        return {k: None if v is None else v + 1 for k, v in specs.items()}
+    tree = {"norm1": None,
+            "mixer": stacked(A.ATTN_SPECS if mixer == "attn"
+                             else S.SSM_SPECS)}
+    if ffn is not None:
+        tree["norm2"] = None
+        tree["ffn"] = stacked(M.MOE_SPECS if ffn == "moe" else M.MLP_SPECS)
+        if ffn == "dense" and cfg.mlp_kind != "swiglu":
+            del tree["ffn"]["wu"]
+    return tree
+
+
+def _walk(tree, prefix="", out=None) -> list:
+    """(dotted path, leaf) of a nested dict in ravel order."""
+    out = [] if out is None else out
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            _walk(tree[k], prefix + k + ".", out)
+        else:
+            out.append((prefix + k, tree[k]))
+    return out
+
+
+def global_leaf_shapes(cfg: ArchConfig, tp: int = 1) -> Shapes:
+    """(dotted path, shape) of every leaf of the reference's global tree at
+    ``tp``, in ravel order."""
     nsb = n_superblocks(cfg)
-    d, vp = cfg.d_model, cfg.padded_vocab(1)
+    d, vp = cfg.d_model, cfg.padded_vocab(tp)
     tree = {
-        "blocks": {f"l{i}": _layer_shapes(cfg, nsb, mx, ff)
+        "blocks": {f"l{i}": _layer_shapes(cfg, nsb, mx, ff, tp)
                    for i, (mx, ff) in enumerate(superblock_layout(cfg))},
         "norm_f": (d,), "w_out": (d, vp),
     }
     if cfg.embed_kind in ("tokens", "prefix"):
         tree["embed"] = (vp, d)
-    out: Shapes = []
+    return _walk(tree)
 
-    def walk(node, prefix):
-        for k in sorted(node):
-            if isinstance(node[k], dict):
-                walk(node[k], prefix + k + ".")
-            else:
-                out.append((prefix + k, node[k]))
-    walk(tree, "")
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
+    """{dotted path: the dim split over the model axis, or None}: the
+    reference's ``param_specs`` (the vocab-parallel ``w_out`` columns and
+    ``embed`` rows; the column- and row-parallel projections; the MoE
+    expert blocks; norms and routers replicated)."""
+    tree = {"blocks": {f"l{i}": _layer_specs(cfg, mx, ff)
+                       for i, (mx, ff) in
+                       enumerate(superblock_layout(cfg))},
+            "norm_f": None, "w_out": 1}
+    if cfg.embed_kind in ("tokens", "prefix"):
+        tree["embed"] = 0
+    return dict(_walk(tree))
+
+
+def leaf_shapes(cfg: ArchConfig, tp: int = 1) -> Shapes:
+    """(dotted path, shape) of every leaf a model rank holds at ``tp`` (its
+    shard of the global leaf), in ravel order."""
+    specs = param_specs(cfg)
+    out: Shapes = []
+    for path, shape in global_leaf_shapes(cfg, tp):
+        dim = specs[path]
+        if dim is not None:
+            if shape[dim] % tp:
+                raise ValueError(f"{path} {shape}: dim {dim} does not split "
+                                 f"over {tp} model ranks")
+            shape = shape[:dim] + (shape[dim] // tp,) + shape[dim + 1:]
+        out.append((path, shape))
     return out
 
 
-def flat_size(cfg: ArchConfig) -> int:
-    return sum(math.prod(s) for _, s in leaf_shapes(cfg))
+def flat_size(cfg: ArchConfig, tp: int = 1) -> int:
+    """Parameters a model rank holds (the flat vector before padding)."""
+    return sum(math.prod(s) for _, s in leaf_shapes(cfg, tp))
+
+
+def _draw(cfg: ArchConfig, path: str, shape, tp: int,
+          generator: torch.Generator) -> torch.Tensor:
+    """One global leaf with the reference's distribution."""
+    leaf = path.rsplit(".", 1)[-1]
+    if leaf.startswith("norm"):
+        return torch.ones(shape)
+    if leaf in S.SPECIAL_LEAVES:
+        return S.init_leaf(leaf, shape, generator)
+    dev = generator.device
+    if leaf in ("wk", "wv") and ".mixer." in path:
+        rep = A.shard_dims(cfg, tp)[2]
+        if rep > 1:
+            # n_kv < tp: one draw of the kv heads, each repeated rep times
+            n, d = shape[:2]
+            t = _draw(cfg, path, (n, d, cfg.n_kv_heads * cfg.head_dim), 1,
+                      generator)
+            return t.reshape(n, d, cfg.n_kv_heads, 1, cfg.head_dim).expand(
+                n, d, cfg.n_kv_heads, rep, cfg.head_dim).reshape(shape)
+    t = torch.randn(shape, generator=generator, device=dev)
+    if leaf in ("embed", "router"):
+        scale = 0.02
+    elif leaf == "wd" and len(shape) == 4:
+        scale = cfg.d_ff ** -0.5          # an expert's slice of d_ff
+    else:
+        scale = shape[-2] ** -0.5
+    return t * scale
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cpu") -> Dict[str, torch.Tensor]:
+                device="cpu", tp: int = 1, rank: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
     """Random f32 parameters with the reference's distributions (norm
     scales 1, linear weights and expert stacks N(0, 1/d_in), ``w_out``
     N(0, 1/d), ``embed`` and the MoE router N(0, 0.02^2), the SSM's own
-    leaves as ``ssm.init_leaf``), drawn from ``generator`` in ravel
-    order."""
+    leaves as ``ssm.init_leaf``), drawn from ``generator`` in ravel order
+    at the global shapes of ``tp``.  ``rank`` given: model rank ``rank``'s
+    shards only, each global leaf drawn whole and then cut, so every
+    rank of one seed holds its part of one global model."""
+    specs = param_specs(cfg)
     params = {}
-    for path, shape in leaf_shapes(cfg):
-        leaf = path.rsplit(".", 1)[-1]
-        if leaf.startswith("norm"):
-            t = torch.ones(shape)
-        elif leaf in S.SPECIAL_LEAVES:
-            t = S.init_leaf(leaf, shape, generator)
-        else:
-            t = torch.randn(shape, generator=generator,
-                            device=generator.device)
-            scale = 0.02 if leaf in ("embed", "router") \
-                else shape[-2] ** -0.5
-            t = t * scale
+    for path, shape in global_leaf_shapes(cfg, tp):
+        t = _draw(cfg, path, shape, tp, generator)
+        if rank is not None:
+            t = shard_leaf(t, specs[path], tp, rank)
         params[path] = t.to(device=device, dtype=torch.float32)
     return params
 
@@ -181,9 +274,10 @@ class Block(nn.Module):
     but for the SSM's layers, an FFN (``"dense"`` | ``"moe"``)."""
 
     def __init__(self, cfg: ArchConfig, views: Dict[str, torch.Tensor],
-                 mixer: str, ffn: Optional[str]):
+                 mixer: str, ffn: Optional[str], ctx: ParallelCtx = NO_TP):
         super().__init__()
         self.cfg, self.mixer_kind, self.ffn_kind = cfg, mixer, ffn
+        self.ctx = ctx
         self.norm1 = nn.Parameter(views["norm1"])
         self.mixer = nn.ParameterDict(
             {k: nn.Parameter(t) for k, t in _sub(views, "mixer.").items()})
@@ -204,19 +298,29 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(x, the MoE layer's aux loss or None)."""
-        eps, cfg = self.cfg.norm_eps, self.cfg
-        h = rms_norm(x, self.norm1, eps)
+        """(x, the MoE layer's aux loss or None).  Under sequence
+        parallelism x is this rank's chunk of the sequence, and each
+        sublayer runs on the gathered sequence between an ``sp_gather`` and
+        an ``sp_scatter``."""
+        eps, cfg, ctx = self.cfg.norm_eps, self.cfg, self.ctx
+        outer = "none" if ctx.sp else "tp"
+        h = rms_norm(x, rep_param(self.norm1, ctx), eps)
+        h_in = sp_gather(h, ctx) if ctx.sp else h
         if self.mixer_kind == "attn":
-            x = x + attn_forward(self.mixer, h, cfg)
+            y = attn_forward(self.mixer, h_in, cfg, ctx=ctx, outer=outer)
         else:
-            x = x + S.ssm_forward(self.mixer, h, cfg)
+            y = S.ssm_forward(self.mixer, h_in, cfg, ctx=ctx, outer=outer)
+        x = x + (sp_scatter(y, ctx) if ctx.sp else y)
         aux = None
-        if self.ffn_kind == "moe":
-            y, aux = moe_forward(self.ffn, rms_norm(x, self.norm2, eps), cfg)
-            x = x + y
-        elif self.ffn_kind == "dense":
-            x = x + mlp_forward(self.ffn, rms_norm(x, self.norm2, eps), cfg)
+        if self.ffn_kind is not None:
+            h = rms_norm(x, rep_param(self.norm2, ctx), eps)
+            h_in = sp_gather(h, ctx) if ctx.sp else h
+            if self.ffn_kind == "moe":
+                y, aux = moe_forward(self.ffn, h_in, cfg, ctx, outer,
+                                     x_shard=h if ctx.sp else None)
+            else:
+                y = mlp_forward(self.ffn, h_in, cfg, ctx, outer)
+            x = x + (sp_scatter(y, ctx) if ctx.sp else y)
         return x, aux
 
 
@@ -232,12 +336,14 @@ def _superblock(blocks, x: torch.Tensor):
 
 
 class Transformer(nn.Module):
-    """The model over a flat f32 parameter vector (see module doc)."""
+    """The model over a flat f32 parameter vector (see module doc): this
+    model rank's shards under ``ctx``."""
 
-    def __init__(self, cfg: ArchConfig, flat: torch.Tensor):
+    def __init__(self, cfg: ArchConfig, flat: torch.Tensor,
+                 ctx: ParallelCtx = NO_TP):
         super().__init__()
-        self.cfg = cfg
-        shapes = leaf_shapes(cfg)
+        self.cfg, self.ctx = cfg, ctx
+        shapes = leaf_shapes(cfg, ctx.tp)
         need = sum(math.prod(s) for _, s in shapes)
         if flat.dtype != torch.float32 or flat.ndim != 1 \
                 or flat.shape[0] < need:
@@ -254,7 +360,7 @@ class Transformer(nn.Module):
             for i, (mx, ff) in enumerate(self.layout):
                 lv = {p: v[sb] for p, v in
                       _sub(views, f"blocks.l{i}.").items()}
-                blocks.append(Block(cfg, lv, mx, ff))
+                blocks.append(Block(cfg, lv, mx, ff, ctx))
         self.blocks = nn.ModuleList(blocks)
         self.embed = nn.Parameter(views["embed"]) if "embed" in views \
             else None
@@ -293,18 +399,30 @@ class Transformer(nn.Module):
 
 def vocab_parallel_xent(x: torch.Tensor, w_out: torch.Tensor,
                         labels: torch.Tensor, mask: torch.Tensor,
-                        cfg: ArchConfig
+                        cfg: ArchConfig, ctx: ParallelCtx = NO_TP,
+                        skip_gcopy: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-entropy over the (single-shard) vocab: f32 logits, padded vocab
-    columns masked to -1e30 before the partition function.  Returns
-    (mean loss, mean greedy accuracy) over ``mask``."""
-    logits = x.to(torch.float32) @ w_out.to(torch.float32)
-    v = logits.shape[-1]
-    keep = torch.arange(v, device=logits.device) < cfg.vocab
+    """Cross-entropy over the vocab-parallel logits: f32 logits of this
+    rank's ``w_out`` columns, the padded vocab columns masked to -1e30,
+    the row max taken over the model axis (outside autograd), the
+    partition function and the label logit summed over it.  Returns (mean
+    loss, mean greedy accuracy) over ``mask``.  ``skip_gcopy``: x came
+    through ``sp_gather``, whose backward already sums the partial
+    cotangents."""
+    xin = x if skip_gcopy else g_copy(x, ctx)
+    logits = xin.to(torch.float32) @ w_out.to(torch.float32)
+    v_l = logits.shape[-1]
+    off = tp_rank(ctx) * v_l
+    keep = torch.arange(v_l, device=logits.device) + off < cfg.vocab
     logits = torch.where(keep, logits, -1e30)
     m = logits.max(dim=-1).values.detach()
-    se = torch.exp(logits - m[..., None]).sum(dim=-1)
-    ll = logits.gather(-1, labels.clamp(0, v - 1)[..., None].long())[..., 0]
+    if ctx.tp > 1:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=ctx.group)
+    se = f_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), ctx)
+    local = labels.long() - off
+    valid = (local >= 0) & (local < v_l)
+    ll = logits.gather(-1, local.clamp(0, v_l - 1)[..., None])[..., 0]
+    ll = f_reduce(torch.where(valid, ll, 0.0), ctx)
     nll = torch.log(se) + m - ll
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
@@ -313,18 +431,44 @@ def vocab_parallel_xent(x: torch.Tensor, w_out: torch.Tensor,
     return loss, acc
 
 
+def embed_tokens(embed: torch.Tensor, ids: torch.Tensor, ctx: ParallelCtx,
+                 dtype, reduce: bool = True) -> torch.Tensor:
+    """Vocab-parallel embedding lookup: this rank's rows hit, the others
+    zero, summed over the model axis in f32 (``reduce=False``: this rank's
+    partial, for ``sp_scatter`` to sum and split in one collective)."""
+    if ctx.tp == 1:
+        return F.embedding(ids.long(), embed).to(dtype)
+    v_l = embed.shape[0]
+    local = ids.long() - tp_rank(ctx) * v_l
+    valid = (local >= 0) & (local < v_l)
+    x = F.embedding(local.clamp(0, v_l - 1), embed)
+    x = torch.where(valid[..., None], x, 0.0)
+    if reduce:
+        x = f_reduce(x, ctx)
+    return x.to(dtype)
+
+
 def _inputs_to_h0(embed: Optional[torch.Tensor],
                   batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-                  dtype) -> torch.Tensor:
+                  dtype, ctx: ParallelCtx = NO_TP) -> torch.Tensor:
     """The modality inputs as the first hidden states (B, S, d): token
     embeddings; the given frames (audio stub); or the patch prefix
-    followed by the text's embeddings (VLM stub)."""
+    followed by the text's embeddings (VLM stub).  Under sequence
+    parallelism, this rank's chunk of the sequence (B, S/tp, d): the
+    partial vocab-parallel lookups are summed and split in one
+    ``sp_scatter``, the replicated patches divided by tp first so the sum
+    restores them (tp is a power of two)."""
+    sp = ctx.sp and ctx.tp > 1
     if cfg.embed_kind == "embeddings":
-        return batch["embeddings"].to(dtype)
-    txt = F.embedding(batch["tokens"].long(), embed).to(dtype)
+        h = batch["embeddings"].to(dtype)
+        return sp_slice(h, ctx) if sp else h
+    txt = embed_tokens(embed, batch["tokens"], ctx, dtype, reduce=not sp)
     if cfg.embed_kind == "prefix":
-        return torch.cat([batch["patch_embeds"].to(dtype), txt], dim=1)
-    return txt
+        patch = batch["patch_embeds"]
+        if sp:
+            patch = patch.to(torch.float32) / ctx.tp
+        txt = torch.cat([patch.to(dtype), txt], dim=1)
+    return sp_scatter(txt, ctx) if sp else txt
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
@@ -333,10 +477,11 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     "acc"}), ``total = loss + aux_weight * aux`` with ``aux`` the MoE
     layers' load-balance losses summed (0 without experts, and then
     total == loss).  A ``prefix`` model's loss is over the text positions
-    only."""
-    cfg = model.cfg
+    only.  Every model rank computes the same loss."""
+    cfg, ctx = model.cfg, model.ctx
+    sp = ctx.sp and ctx.tp > 1
     dtype = getattr(torch, cfg.compute_dtype)
-    h = _inputs_to_h0(model.embed, batch, cfg, dtype)
+    h = _inputs_to_h0(model.embed, batch, cfg, dtype, ctx)
     aux = None
     for sb in model.superblocks():
         fn = functools.partial(_superblock, sb)
@@ -344,7 +489,9 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             else fn(h)
         if a is not None:
             aux = a if aux is None else aux + a
-    h = rms_norm(h, model.norm_f, cfg.norm_eps)
+    h = rms_norm(h, rep_param(model.norm_f, ctx), cfg.norm_eps)
+    if sp:
+        h = sp_gather(h, ctx)       # the LM head stays vocab-parallel
     labels = batch["labels"]
     if cfg.embed_kind == "prefix":
         h = h[:, -labels.shape[1]:, :]
@@ -352,7 +499,8 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    loss, acc = vocab_parallel_xent(h, model.w_out, labels, mask, cfg)
+    loss, acc = vocab_parallel_xent(h, model.w_out, labels, mask, cfg, ctx,
+                                    skip_gcopy=sp)
     if aux is None:
         zero = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss, {"loss": loss, "aux": zero, "acc": acc}

@@ -62,12 +62,14 @@ MEM_GROWTH_MIN_FRAC = 0.05
 LOSS_SPIKE_FACTOR = 3.0
 
 
-def make_audit_probe(ts, optimizer, dp_axes=(), pod_axes=()):
+def make_audit_probe(ts, optimizer, dp_axes=(), pod_axes=(), tp_axes=()):
     """The per-segment audit probe of one training setup.
 
     ``ts`` is the run's :class:`~repro_torch.train.step.TrainState`,
     ``optimizer`` its optimizer, ``dp_axes`` / ``pod_axes`` the exchange's
-    axes as ``train_step`` splits them (within the pod / across pods).
+    axes as ``train_step`` splits them (within the pod / across pods),
+    ``tp_axes`` the model axis (its ranks' shards summed into the
+    per-segment stats).
     Returns ``probe(batch, shadow_v) -> (new_shadow_v, stats)``: the
     gradient of ``batch`` at the current parameters into the probe's own
     buffer (the model's ``.grad`` views point at it for the backward and
@@ -99,7 +101,7 @@ def make_audit_probe(ts, optimizer, dp_axes=(), pod_axes=()):
         with torch.no_grad():
             return optimizer.audit_stats(g, ts.opt, shadow_v,
                                          dp_axes=dp_axes, pod_axes=pod_axes,
-                                         segs=ts.segs)
+                                         segs=ts.segs, tp_axes=tp_axes)
 
     probe.stat_keys = tuple(AUDIT_SEG_KEYS) + tuple(AUDIT_SCALAR_KEYS) \
         + tuple(optimizer.audit_extra_keys)

@@ -151,9 +151,12 @@ def predict_ledger(cfg, dp_sizes: Sequence[int] = (1,), *, optim=None,
                    block: int = 4096, n_buckets: int = 1,
                    batch_global: int = 1, seq: int = 1, plan=None,
                    spec=None, capacity_bytes: Optional[float] = None,
-                   param_dtype_bytes: int = 4, ready=None) -> MemoryLedger:
+                   param_dtype_bytes: int = 4, ready=None,
+                   tp: int = 1) -> MemoryLedger:
     """The predicted per-rank ledger of one training run on a mesh of
-    ``dp_sizes`` (a model axis of 1; two sizes = pods x data).
+    ``dp_sizes`` (two sizes = pods x data) and a model axis of ``tp``: a
+    model rank's shards, its flat vector and state, and its share of the
+    activations.
 
     ``plan`` is the compressed exchange's :class:`~repro_torch.plan.CommPlan`
     (``launch.train.run_plans`` builds it; None prices the wire category
@@ -165,18 +168,18 @@ def predict_ledger(cfg, dp_sizes: Sequence[int] = (1,), *, optim=None,
     from repro_torch.train.step import flat_dim, segment_info
     dp_sizes = tuple(int(s) for s in dp_sizes)
     n_dp = max(math.prod(dp_sizes), 1)
-    d = flat_dim(cfg, n_dp, block)
+    d = flat_dim(cfg, n_dp, block, tp)
     n_srv, n_outer = n_dp, 1
     if topology == "hier" and len(dp_sizes) > 1:
         _, _, n_srv, n_outer = pod_split(mesh_axes(dp_sizes), dp_sizes)
     ctx = StateLayout(d=d, n_dp=n_dp, n_srv=n_srv, n_outer=n_outer,
-                      n_segments=segment_info(cfg, d).n,
-                      dp_sizes=dp_sizes, tp=1)
+                      n_segments=segment_info(cfg, d, tp).n,
+                      dp_sizes=dp_sizes, tp=tp)
     if optim is None:
         from repro_torch.optim.base import TwoStageOptimizer
         optim = TwoStageOptimizer()
     slots = optim.state_slots(layout)
-    pbytes = float(param_bytes(cfg, 1, param_dtype_bytes))
+    pbytes = float(param_bytes(cfg, tp, param_dtype_bytes))
     # the padded flat f32 gradient buffer is the gradient's steady-state
     # residency
     gbytes = float(d) * 4.0
@@ -186,11 +189,12 @@ def predict_ledger(cfg, dp_sizes: Sequence[int] = (1,), *, optim=None,
         plan, comp, n_buckets=n_buckets, n_total=n_dp, block=block,
         spec=spec, ready=ready)
     b_local = max(batch_global // n_dp, 1)
-    abytes = activation_bytes(cfg, b_local, seq, 1)
+    abytes = activation_bytes(cfg, b_local, seq, tp)
     cats = {"params": pbytes, "grads": gbytes, "opt_state": sbytes,
             "wire": wbytes, "activations": abytes}
     detail = {
-        "params": f"{param_dtype_bytes}B x per-model-rank leaves (tp=1)",
+        "params": f"{param_dtype_bytes}B x per-model-rank leaves "
+                  f"(tp={tp})",
         "grads": f"flat f32 exchange buffer (d={d})",
         "opt_state": (f"{len(slots)} slot(s), layout={layout}, "
                       f"topology={topology}"),

@@ -347,8 +347,11 @@ class TwoStageOptimizer:
                       x: torch.Tensor, lr: float, *,
                       dp_axes: Sequence[str] = (),
                       segs: Optional[SegmentInfo] = None,
+                      tp_axes: Sequence[str] = (),
                       ) -> Tuple[torch.Tensor, StateTree, dict]:
-        """Uncompressed adaptive step on the dp-mean gradient; with
+        """Uncompressed adaptive step on the dp-mean gradient (``tp_axes``:
+        the model axis the layerwise norms of a direction hook sum over,
+        each model rank holding its shard of every layer); with
         :attr:`_fused_warmup_ok` the whole elementwise update is ONE fused
         op (``kernels/fused_adam``: the Hopper kernel on CUDA tensors)."""
         g = comm.allreduce_mean(g_local, dp_axes)
@@ -370,7 +373,7 @@ class TwoStageOptimizer:
             upd = m_hat / (torch.sqrt(v_hat) + self.eps)
             if self.weight_decay:
                 upd = upd + self.weight_decay * x
-            upd = self._warmup_direction(upd, x, segs, ())
+            upd = self._warmup_direction(upd, x, segs, tuple(tp_axes))
             new_x = x - lr * upd
         stats = self._stats(v_l1=v.abs().sum(),
                             grad_norm=torch.linalg.vector_norm(g),
@@ -413,7 +416,8 @@ class TwoStageOptimizer:
                pod_axes: Sequence[str] = (),
                segs: Optional[SegmentInfo] = None,
                sync: bool = True, n_buckets: int = 1,
-               exchange=None) -> Tuple[torch.Tensor, StateTree, dict]:
+               exchange=None, tp_axes: Sequence[str] = ()
+               ) -> Tuple[torch.Tensor, StateTree, dict]:
         """Compressed (or, with ``sync=False``, purely local) momentum
         step preconditioned by the (hook-governed) second moment.
 
@@ -427,9 +431,10 @@ class TwoStageOptimizer:
         With ``pod_axes`` the exchange runs the hierarchical schedule
         (``dp_axes`` within the pod, ``pod_axes`` across pods);
         ``n_buckets > 1`` runs it through the pipelined executor, bitwise
-        the serial one.  ``exchange`` is a wavefront from
-        :meth:`start_exchange` that backward overlap has fed every bucket
-        of (each folded by :meth:`fold_momentum`); ``g_local`` is then
+        the serial one.  ``tp_axes``: the model axis the layerwise norms
+        sum over (as in :meth:`warmup_update`).  ``exchange`` is a
+        wavefront from :meth:`start_exchange` that backward overlap has
+        fed every bucket of (each folded by :meth:`fold_momentum`); ``g_local`` is then
         read for the stats only.
 
         A ``sync=False`` ("0-bit") step moves no bytes and applies no
@@ -476,7 +481,7 @@ class TwoStageOptimizer:
             if segs is not None:
                 segs = segs.window(lo, lo + chunk)
             # each rank holds one chunk: segment norms sum over dp
-            norm_axes = all_axes
+            norm_axes = tuple(tp_axes) + all_axes
         else:
             if x is None:
                 raise ValueError("update() needs x for the replicated and "
@@ -485,7 +490,7 @@ class TwoStageOptimizer:
                                        m_bar, count)
             upd = m_bar / (torch.sqrt(v) + self.eps)
             master = x
-            norm_axes = ()
+            norm_axes = tuple(tp_axes)
 
         scale = self._update_scale(state.scale, master, upd, segs,
                                    norm_axes)
@@ -517,6 +522,7 @@ class TwoStageOptimizer:
                     dp_axes: Sequence[str] = (),
                     pod_axes: Sequence[str] = (),
                     segs: Optional[SegmentInfo] = None,
+                    tp_axes: Sequence[str] = (),
                     ) -> Tuple[torch.Tensor, dict]:
         """Per-segment compression-fidelity and frozen-variance stats of
         one WOULD-BE sync step — pure observation: the state and the EF
@@ -536,12 +542,14 @@ class TwoStageOptimizer:
         Fidelity is measured on what a sync step compresses: the
         EF-compensated local momentum ``m_local + worker_err`` against
         its decompressed wire image.  Needs the full ``v`` slot (the
-        replicated and local layouts; zero1 shards it)."""
+        replicated and local layouts; zero1 shards it).  ``tp_axes``: the
+        per-segment sums run over the model ranks' shards too."""
         if "v" not in state:
             raise ValueError("audit_stats needs the full 'v' slot (the "
                              "replicated or local layout), not zero1's "
                              "v_shard")
         all_dp = tuple(pod_axes) + tuple(dp_axes)
+        tp = tuple(tp_axes)
         if segs is None:
             segs = SegmentInfo((g_local.shape[0],))
 
@@ -549,8 +557,8 @@ class TwoStageOptimizer:
         # gradient, compared per segment against the frozen v
         g = comm.allreduce_mean(g_local, all_dp)
         new_sv = self.b2 * shadow_v + (1.0 - self.b2) * torch.square(g)
-        sv_seg = segment_l1(new_sv, segs)
-        v_seg = segment_l1(state.v, segs)
+        sv_seg = segment_l1(new_sv, segs, tp)
+        v_seg = segment_l1(state.v, segs, tp)
         one = torch.ones((), device=v_seg.device)
         # zero-mass segments (the padding tail, untouched layers) have no
         # drift to report: ratio pinned to 1.0, not 0/0
@@ -565,21 +573,21 @@ class TwoStageOptimizer:
         raw = m_local + state.worker_err
         payload, _ = self.compressor.ef_compress(m_local, state.worker_err)
         m_hat = self.compressor.decompress(payload)
-        cos = segment_cosine(raw, m_hat, segs)
-        sign = segment_sign_agreement(raw, m_hat, segs)
+        cos = segment_cosine(raw, m_hat, segs, tp)
+        sign = segment_sign_agreement(raw, m_hat, segs, tp)
         if all_dp:   # per-rank quantities: report the dp mean
             cos = comm.allreduce_mean(cos, all_dp)
             sign = comm.allreduce_mean(sign, all_dp)
 
         # EF-residual mass per segment: global L2 over every rank's
         # residual
-        we_seg = segment_norms(state.worker_err, segs, all_dp)
+        we_seg = segment_norms(state.worker_err, segs, tp + all_dp)
         # the server residual is one chunk per intra-pod rank at that
         # rank's element offset (the all_to_all partition)
         chunk = state.server_err.shape[0]
         off = comm.axis_index(dp_axes) * chunk if dp_axes else 0
         se_seg = segment_norms(state.server_err,
-                               segs.window(off, off + chunk), all_dp)
+                               segs.window(off, off + chunk), tp + all_dp)
 
         m_norm = torch.linalg.vector_norm(m_local)
         stats = {

@@ -9,9 +9,11 @@ tree and one GLOBAL array per state slot (``(*dp_sizes, tp, L)`` for
 per-dp-rank and dp-sharded slots, ``(tp, L)`` for replicated ones) — so a
 checkpoint written by either package loads in the other:
 
-  * **save** — every per-rank slot is gathered from the dp ranks to rank
-    0, which writes; bucket-keyed EF slots are permuted to the canonical
-    (serial) keying and the meta records ``ef_layout="canonical"``;
+  * **save** — every per-rank slot is gathered from the dp ranks (and,
+    under tensor parallelism, every slot from the model ranks: each model
+    rank's shard is its ``tp`` row) to rank 0, which writes; bucket-keyed
+    EF slots are permuted to the canonical (serial) keying and the meta
+    records ``ef_layout="canonical"``;
   * **load** — every rank reads the archive into the declared zeros
     template, takes its own slice of each per-rank slot, and names the
     slots the archive predates (they start at zeros).
@@ -28,7 +30,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint.io import load_meta, load_pytree, save_pytree
 from repro_torch.convert import (params_from_jax, params_to_jax,
                                  state_from_global, state_to_global)
-from repro_torch.plan.executor import all_gather_into
+from repro_torch.plan.executor import all_gather_into, group_of
 from repro_torch.state.layout import from_canonical, to_canonical
 from repro_torch.state.slots import (SlotSpec, StateLayout, StateTree,
                                      global_shapes)
@@ -47,19 +49,23 @@ def slot_diff(state_template: Mapping, archive_keys: Sequence[str]
 
 
 def _rank_states(state: StateTree, slots: Sequence[SlotSpec],
-                 ctx: StateLayout, dp_axes: Sequence[str]):
-    """Every rank's state (rank order): per-rank slots gathered over the
-    dp ranks, the rest this rank's."""
-    n = max(ctx.n_dp, 1)
-    if not dp_axes:
+                 ctx: StateLayout, dp_axes: Sequence[str],
+                 tp_axes: Sequence[str] = ()):
+    """Every rank's state (rank order: dp index * tp + model index):
+    per-rank slots gathered over the dp ranks, and with ``tp_axes`` every
+    slot over the model ranks too; the rest this rank's."""
+    if not dp_axes and not tp_axes:
         return [state]
+    n = max(ctx.n_dp, 1) * (max(ctx.tp, 1) if tp_axes else 1)
+    group = group_of(tuple(tp_axes) + tuple(dp_axes)) if tp_axes else None
     per_rank = {}
     for s in slots:
-        if s.extent != "scalar" and s.replication != "replicated":
+        if s.extent != "scalar" and (tp_axes or
+                                     s.replication != "replicated"):
             t = state[s.name].contiguous()
             out = torch.empty((n * t.shape[0],), dtype=t.dtype,
                               device=t.device)
-            all_gather_into(out, t)
+            all_gather_into(out, t, group=group)
             per_rank[s.name] = out.view(n, -1)
     return [StateTree({k: per_rank[k][r] if k in per_rank else v
                        for k, v in state.items()}) for r in range(n)]
@@ -70,30 +76,35 @@ def save_train_state(path: str, params: Mapping[str, torch.Tensor],
                      slots: Sequence[SlotSpec], ctx: StateLayout,
                      n_buckets: int, block: int,
                      extra_meta: dict = None,
-                     dp_axes: Sequence[str] = ()) -> None:
-    """Save the port's dotted ``params`` and this rank's ``state`` in the
-    reference's global layout; rank 0 writes (every rank must call)."""
-    glob = state_to_global(_rank_states(state, slots, ctx, dp_axes), slots,
-                           ctx)
-    if not dp_axes or dist.get_rank() == 0:
+                     dp_axes: Sequence[str] = (),
+                     tp_axes: Sequence[str] = ()) -> None:
+    """Save the port's dotted ``params`` (the global tree) and this rank's
+    ``state`` in the reference's global layout; rank 0 writes (every rank
+    must call)."""
+    glob = state_to_global(_rank_states(state, slots, ctx, dp_axes,
+                                        tp_axes), slots, ctx)
+    multi = bool(dp_axes or tp_axes)
+    if not multi or dist.get_rank() == 0:
         canon = to_canonical(glob, slots, ctx, n_buckets=n_buckets,
                              block=block)
         meta = {"ef_layout": EF_LAYOUT_CANONICAL,
                 "n_buckets": int(n_buckets), "block": int(block),
                 **(extra_meta or {})}
         save_pytree(path, (params_to_jax(params), canon), step, meta=meta)
-    if dp_axes:
+    if multi:
         dist.barrier()
 
 
 def load_train_state(path: str, params_template: Mapping[str, torch.Tensor],
                      state_template: StateTree, *,
                      slots: Sequence[SlotSpec], ctx: StateLayout,
-                     n_buckets: int, block: int, rank: int = 0
+                     n_buckets: int, block: int, rank: int = 0,
+                     model_rank: int = 0
                      ) -> Tuple[Tuple[dict, StateTree], int]:
-    """Restore ``(params, state)`` of rank ``rank``: the port's dotted f32
-    params (on the CPU) and this rank's state tensors on the template's
-    device; returns ``((params, state), step)``."""
+    """Restore ``(params, state)`` of dp rank ``rank``, model rank
+    ``model_rank``: the port's dotted f32 params (the global tree, on the
+    CPU; ``params_template`` its shapes) and this rank's state tensors on
+    the template's device; returns ``((params, state), step)``."""
     meta = load_meta(path)
     with np.load(path) as data:
         archive_keys = [k for k in data.files if not k.startswith("__")]
@@ -117,7 +128,8 @@ def load_train_state(path: str, params_template: Mapping[str, torch.Tensor],
                             block=int(meta.get("block", block)))
     glob = from_canonical(glob, slots, ctx, n_buckets=n_buckets, block=block)
     device = next(iter(state_template.values())).device
-    state = state_from_global(glob, slots, ctx, rank=rank, device=device)
+    state = state_from_global(glob, slots, ctx, rank=rank, device=device,
+                              model_rank=model_rank)
     return (params_from_jax(params), state), step
 
 

@@ -123,12 +123,14 @@ class StateLayout:
                 }[chunk_of]
 
 
-def flat_layout(d: int, n_dp: int = 1, n_segments: int = 1) -> StateLayout:
-    """The flat topology's context on a dp axis of ``n_dp`` ranks: every
-    rank serves one chunk, one dp mesh dim, tp = 1."""
+def flat_layout(d: int, n_dp: int = 1, n_segments: int = 1,
+                tp: int = 1) -> StateLayout:
+    """The flat topology's context on a dp axis of ``n_dp`` ranks (each
+    model rank's, with a model axis of ``tp``): every rank serves one
+    chunk, one dp mesh dim."""
     n = max(n_dp, 1)
     return StateLayout(d=d, n_dp=n, n_srv=n, n_outer=1,
-                       n_segments=max(n_segments, 1), dp_sizes=(n,), tp=1)
+                       n_segments=max(n_segments, 1), dp_sizes=(n,), tp=tp)
 
 
 def slot_length(spec: SlotSpec, ctx: StateLayout) -> Optional[int]:

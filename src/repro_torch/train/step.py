@@ -64,6 +64,7 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.convert import flat_from_params
 from repro_torch.core import comm
 from repro_torch.core.compression import padded_length
+from repro_torch.models.common import NO_TP, ParallelCtx
 from repro_torch.models.transformer import (Transformer, flat_size,
                                             leaf_shapes, loss_fn)
 from repro_torch.optim.base import (SegmentInfo, TwoStageOptimizer,
@@ -87,14 +88,17 @@ def optimizer_from_config(ocfg) -> TwoStageOptimizer:
         bias_correction=ocfg.bias_correction)
 
 
-def flat_dim(cfg: ArchConfig, n_dp: int, block: int) -> int:
-    """Padded flat parameter length: a multiple of n_dp * block."""
-    return padded_length(flat_size(cfg), max(n_dp, 1), block)
+def flat_dim(cfg: ArchConfig, n_dp: int, block: int, tp: int = 1) -> int:
+    """Padded flat parameter length of one model rank at ``tp``: a
+    multiple of n_dp * block (the reference's ``_flat_dim``)."""
+    return padded_length(flat_size(cfg, tp), max(n_dp, 1), block)
 
 
-def segment_info(cfg: ArchConfig, d_pad: int) -> SegmentInfo:
-    """ravel_pytree leaves, plus the padding tail as its own segment."""
-    return segments_of([math.prod(s) for _, s in leaf_shapes(cfg)], d_pad)
+def segment_info(cfg: ArchConfig, d_pad: int, tp: int = 1) -> SegmentInfo:
+    """A model rank's ravel_pytree leaves (its shards at ``tp``), plus the
+    padding tail as its own segment."""
+    return segments_of([math.prod(s) for _, s in leaf_shapes(cfg, tp)],
+                       d_pad)
 
 
 @dataclasses.dataclass
@@ -115,25 +119,35 @@ def init_train_state(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                      optimizer: TwoStageOptimizer, block: int,
                      n_dp: int = 1, device="cpu",
                      layout: str = "replicated",
-                     n_inner: Optional[int] = None) -> TrainState:
+                     n_inner: Optional[int] = None,
+                     ctx: ParallelCtx = NO_TP,
+                     seq_parallel: bool = False) -> TrainState:
     """Flat buffers, the model over them, and zeros optimizer state in
     ``layout``; under zero1 this rank's f32 master chunk starts as its
     chunk of the parameters.  ``n_dp`` counts every dp rank (the padding
     basis); ``n_inner`` is the pod size of the hierarchical topology,
-    which sizes the server and cross-pod EF chunks (None = flat)."""
-    d = flat_size(cfg)
-    d_pad = flat_dim(cfg, n_dp, block)
+    which sizes the server and cross-pod EF chunks (None = flat).
+    ``ctx`` is this rank's model axis (``params`` are then its shards, as
+    ``init_params(..., tp=, rank=)`` or ``convert.shard_params`` give
+    them); ``seq_parallel`` runs the model with Megatron sequence
+    parallelism (the reference's ``TrainStepConfig.seq_parallel``)."""
+    tp = ctx.tp
+    if seq_parallel:
+        ctx = dataclasses.replace(ctx, sp=True)
+    d = flat_size(cfg, tp)
+    d_pad = flat_dim(cfg, n_dp, block, tp)
     x = flat_from_params(params, d_pad).to(device)
     g = torch.zeros_like(x)
-    model = Transformer(cfg, x)
+    model = Transformer(cfg, x, ctx)
     model.bind_grads(g)
-    segs = segment_info(cfg, d_pad)
+    segs = segment_info(cfg, d_pad, tp)
     opt = optimizer.init_state(d_pad, n_dp, segs.n, n_inner=n_inner,
                                layout=layout, device=device)
     ts = TrainState(model=model, x=x, g=g, opt=opt, d=d, segs=segs,
                     layout=layout)
     if layout == "zero1":
-        lo, hi = _chunk(ts, n_dp, dist.get_rank() if n_dp > 1 else 0)
+        lo, hi = _chunk(ts, n_dp,
+                        dist.get_rank() // tp if n_dp > 1 else 0)
         ts.opt = ts.opt._replace(master_shard=x[lo:hi].clone())
     return ts
 
@@ -326,8 +340,8 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
                dp_axes: Sequence[str] = (), sync: bool = True,
                accum_steps: int = 1, pod_axes: Sequence[str] = (),
                topology: str = "flat", n_buckets: int = 1,
-               overlap_bwd: bool = False, aux_weight: float = 0.01
-               ) -> Dict[str, torch.Tensor]:
+               overlap_bwd: bool = False, aux_weight: float = 0.01,
+               tp_axes: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
     """One step of ``stage`` ("warmup" | "compressed"); updates ``ts`` and
     returns the metrics (0-dim tensors): loss/aux/acc/total dp-meaned,
     ``v_l1`` (the global one: summed over the shards under zero1,
@@ -338,7 +352,10 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
     is a compressed update, as in the reference.  See the module doc for
     the axes, ``topology``, ``n_buckets`` and ``overlap_bwd``.
     ``aux_weight`` scales the MoE load-balance loss into the total (the
-    reference's ``TrainStepConfig.aux_weight``)."""
+    reference's ``TrainStepConfig.aux_weight``).  ``tp_axes`` (the model
+    axis, when the mesh has one above 1): the optimizer's layerwise norms
+    sum over it, and ``v_l1`` is summed over the model ranks' shards; the
+    other stats stay per model rank, as in the reference."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}")
     if topology not in TOPOLOGIES:
@@ -360,13 +377,14 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
     total, metrics = _grads(ts, batch, accum_steps, overlap, aux_weight)
     ts.stage0_in_bwd = overlap.early if overlap is not None else 0
     kw = dict(dp_axes=inner, pod_axes=outer, segs=ts.segs, sync=sync,
-              n_buckets=n_buckets,
+              n_buckets=n_buckets, tp_axes=tuple(tp_axes),
               exchange=overlap.ex if overlap is not None else None)
     if sharded:
         new_x, ts.opt, stats = optimizer.update(ts.g, ts.opt, lr, **kw)
     elif stage == "warmup":
         new_x, ts.opt, stats = optimizer.warmup_update(
-            ts.g, ts.opt, ts.x, lr, dp_axes=all_axes, segs=ts.segs)
+            ts.g, ts.opt, ts.x, lr, dp_axes=all_axes, segs=ts.segs,
+            tp_axes=tuple(tp_axes))
     else:
         new_x, ts.opt, stats = optimizer.update(ts.g, ts.opt, lr, x=ts.x,
                                                 **kw)
@@ -382,6 +400,9 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
         dist.all_reduce(v_l1, group=group_of(all_axes))  # zero1: the sum
         if not sharded:
             v_l1 = v_l1 / comm.axis_size(all_axes)
+    if tp_axes:
+        v_l1 = v_l1.clone()
+        dist.all_reduce(v_l1, group=group_of(tp_axes))
     out["v_l1"] = v_l1
     return out
 

@@ -80,7 +80,7 @@ def exchange_main(rank: int, world: int, workdir: str, block: int,
     from repro_torch.optim.compressors import get_compressor
     dev = _init(rank, world, workdir, backend, "exchange")
     try:
-        mesh = build_mesh("2x2x1", dev.type)
+        mesh = build_mesh("2x2x1")
         assert mesh.axes == ("pod", "data")
         assert dist.get_rank(mesh.groups[("pod",)]) == rank // 2
         assert dist.get_rank(mesh.groups[("data",)]) == rank % 2
@@ -127,7 +127,7 @@ def _train_steps(spec: dict, rank: int, dev):
                                         train_step)
     cfg = get_config(spec["arch"])
     block = spec["block"]
-    mesh = build_mesh(spec["mesh"], dev.type)
+    mesh = build_mesh(spec["mesh"])
     n_dp = mesh.n_dp
     inner, outer, n_inner, n_outer = pod_split(mesh.axes, mesh.sizes)
     hier = spec["topology"] == "hier" and n_outer > 1
@@ -250,7 +250,7 @@ def layouts_main(rank: int, world: int, workdir: str, backend: str,
     try:
         with open(os.path.join(workdir, "runs.json")) as f:
             specs = json.load(f)
-        mesh = build_mesh("2x2x1", dev.type)
+        mesh = build_mesh("2x2x1")
         axes = mesh.axes                    # the flat topology: both
         segs = SegmentInfo((LAYOUT_D,))
         out = {}

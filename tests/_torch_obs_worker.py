@@ -54,7 +54,7 @@ def spans_main(rank: int, world: int, workdir: str) -> None:
     from repro_torch.plan import execute_plan, flat_schedule, hier_schedule
     _init(rank, world, workdir)
     try:
-        build_mesh("2x2x1", "cpu")
+        build_mesh("2x2x1")
         comp = get_compressor("onebit", block_size=BLOCK)
         flat = flat_schedule(comp, D, 4, ("pod", "data"))
         plans = {

@@ -91,11 +91,11 @@ def _routes(cfg, flat, batch, monkeypatch):
     seen = []
     moe = TT.moe_forward
 
-    def spy(p, x, c):
+    def spy(p, x, c, *args, **kw):
         logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
         seen.append(torch.topk(torch.softmax(logits, -1), c.moe_top_k,
                                -1)[1])
-        return moe(p, x, c)
+        return moe(p, x, c, *args, **kw)
     with monkeypatch.context() as mp:
         mp.setattr(TT, "moe_forward", spy)
         with torch.no_grad():

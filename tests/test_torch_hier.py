@@ -184,11 +184,13 @@ def test_topk_on_hier_needs_outer_slots(runs):
 
 def test_mesh_spelling():
     from repro_torch.launch.mesh import mesh_axes, parse_mesh, pod_split
-    assert parse_mesh("4") == (4,) and parse_mesh("4x1") == (4,)
-    assert parse_mesh("2x2x1") == (2, 2)
+    assert parse_mesh("4") == ((4,), 1) and parse_mesh("4x1") == ((4,), 1)
+    assert parse_mesh("2x2x1") == ((2, 2), 1)
     assert mesh_axes((2, 2)) == ("pod", "data")
     assert pod_split(("pod", "data"), (2, 4)) == (("data",), ("pod",), 4, 2)
     assert pod_split(("dp",), (4,)) == (("dp",), (), 4, 1)
-    with pytest.raises(NotImplementedError):
-        parse_mesh("2x2x2")
-    assert parse_mesh((2, 2, 1)) == (2, 2)
+    assert parse_mesh("2x2x2") == ((2, 2), 2)
+    assert parse_mesh("2x4") == ((2,), 4)
+    with pytest.raises(ValueError):
+        parse_mesh("2x2x2x2")
+    assert parse_mesh((2, 2, 1)) == ((2, 2), 1)
