@@ -254,6 +254,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                (``tests/_torch_tp_worker.reduced_parity``); with one card
                it prints that it needs two.  Prints the ``{"tp": {...}}``
                line.
+ 19. tp-serve — tensor-parallel serving and the dry run.  19a:
+               granite-34b at full width cut to TP_SERVE["layers"] layers
+               (MQA: its one kv head duplicated on the four model ranks):
+               the tp 4 serving tree drawn on the card, cut into the four
+               model ranks' shards and joined back bitwise; each rank's
+               cache shapes from ``make_serve_step(...).init_caches`` on a
+               1 x 4 mesh; the predicted bytes a card at full depth
+               (weights in bf16 and the caches of batch 8 x 2048 + 32).
+               19b: the same model's tp 1 tree in bf16 with
+               attn_impl="pallas" through ``make_serve_step`` (prefill,
+               then one decode step) bitwise ``prefill`` / ``decode_step``
+               called directly; the flash launches of the step's prefill
+               set to 0 just before and read just after (one wgmma launch
+               a layer, none of the others); the wgmma route at a tp 4
+               rank's prefill shape (8, 12, 2048, 128) against its plain
+               version at phase 7's tolerance.  19c: the dry run
+               (``launch.dryrun.lower_one``, meta tensors, a fake process
+               group) of phase 5's configuration (bert-large, batch 16 x
+               128, mesh 1 x 1, compressed, block 4096): its traced peak
+               and roofline terms printed beside phase 5's
+               ``max_memory_allocated`` and phase 6's device-busy ms.
+               Prints the ``{"tp_serve": {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
@@ -261,7 +283,8 @@ phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
 phase 12, the sweep and the auto run in phase 13, the observed run in
 phase 14a, each card run of phase 15a and the full-width run of 15b, each
 card run of phase 16a and the generate calls of 16b and 16c, each harness
-entry of 17b and each run of 17c) and read just after it.  It prints the
+entry of 17b, each run of 17c and the prefill of 19b) and read just
+after it.  It prints the
 ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2491,11 +2514,11 @@ class _RouteSpy:
     def __enter__(self):
         moe = self.T.moe_forward
 
-        def spy(p, x, cfg):
+        def spy(p, x, cfg, *a, **kw):
             logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
             self.calls.append(torch.topk(torch.softmax(logits, -1),
                                          cfg.moe_top_k, -1)[1].cpu())
-            return moe(p, x, cfg)
+            return moe(p, x, cfg, *a, **kw)
         self._moe = moe
         self.T.moe_forward = spy
         return self
@@ -3248,6 +3271,177 @@ def phase_tp() -> dict:
     return out
 
 
+# phase 19: tensor-parallel serving at full width (granite-34b cut in
+# depth) and the dry run of phase 5's configuration
+TP_SERVE = dict(arch="granite-34b", layers=8, tp=4, batch=8, prompt=2048,
+                new_tokens=32, seed=0)
+
+
+def _one_kv_copy(params: dict, cfg, tp: int) -> dict:
+    """The tp = 1 tree of a tp global tree: each kv head's duplicate
+    columns dropped."""
+    from repro_torch.models.attention import shard_dims
+    rep, hd = shard_dims(cfg, tp)[2], cfg.head_dim
+    out = dict(params)
+    for p, t in params.items():
+        if rep > 1 and p.endswith(("mixer.wk", "mixer.wv")):
+            n, d = t.shape[:2]
+            out[p] = t.reshape(n, d, -1, rep, hd)[:, :, :, 0].reshape(
+                n, d, -1).contiguous()
+    return out
+
+
+def phase_tp_serve(main_stats) -> dict:
+    """Phase 19 (see the module docstring)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as FR
+    from repro_torch.launch.dryrun import lower_one
+    from repro_torch.launch.mesh import DpMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.step import make_serve_step
+    sv, t_phase = TP_SERVE, time.perf_counter()
+    out = {}
+    full = get_config(sv["arch"])
+    cfg = dataclasses.replace(full, n_layers=sv["layers"],
+                              attn_impl="pallas")
+    tp, b, s = sv["tp"], sv["batch"], sv["prompt"]
+    s_c = s + sv["new_tokens"]
+    # 19a: the tp 4 tree, its shards, the caches of a 1 x 4 rank
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(sv["seed"])
+    glob = T.init_params(cfg, gen, device="cuda", tp=tp)
+    specs = T.param_specs(cfg)
+    shards = [shard_params(glob, specs, tp, r) for r in range(tp)]
+    local = dict(T.leaf_shapes(cfg, tp))
+    if any({p: tuple(t.shape) for p, t in sh.items()} != local
+           for sh in shards):
+        raise AssertionError("[tp-serve] a shard is not the rank's layout")
+    back = unshard_params(shards, specs)
+    if not all(torch.equal(back[p], glob[p]) for p in glob):
+        raise AssertionError("[tp-serve] shard -> unshard is not bitwise "
+                             "the global tree")
+    del shards, back
+    mesh4 = DpMesh(axes=("dp",), sizes=(1,), groups={}, tp=tp)
+    step4 = make_serve_step(cfg, mesh4, InputShape("d", s_c, b, "decode"))
+    caches4 = step4.init_caches(dtype=torch.bfloat16)
+    cache_shapes = {f"{n}.{k}": list(t.shape) for n, leaves in
+                    caches4.items() for k, t in leaves.items()}
+    want_k = [sv["layers"], b, s_c, 1, cfg.head_dim]
+    if cache_shapes != {"l0.k": want_k, "l0.v": want_k}:
+        raise AssertionError(f"[tp-serve] rank caches {cache_shapes}")
+    del caches4
+    full_caches = T.init_caches(full, b, s_c, torch.bfloat16, "meta", tp=tp)
+    rank_cache_bytes = sum(
+        t.numel() // tp * t.element_size()
+        for leaves in full_caches.values() for t in leaves.values())
+    rank_weight_bytes = 2 * T.flat_size(full, tp)
+    out["a"] = dict(global_params=cfg.param_count(tp),
+                    rank_params=T.flat_size(cfg, tp),
+                    rank_cache_shapes=cache_shapes,
+                    full_depth_rank_weight_bytes_bf16=rank_weight_bytes,
+                    full_depth_rank_cache_bytes=rank_cache_bytes,
+                    full_depth_rank_params=T.flat_size(full, tp),
+                    seconds=time.perf_counter() - t0)
+    log(f"[tp-serve] 19a {sv['arch']} x {sv['layers']} layers at tp {tp}: "
+        f"{cfg.param_count(tp):,} global params, {T.flat_size(cfg, tp):,} "
+        f"a model rank; shard -> unshard bitwise; a rank's caches "
+        f"{cache_shapes}; at full depth ({full.n_layers} layers) a card "
+        f"holds {rank_weight_bytes / 1e9:.2f} GB of bf16 weights and "
+        f"{rank_cache_bytes / 1e9:.2f} GB of caches at batch {b} x {s_c}")
+    # 19b: tp 1 through make_serve_step, bitwise the direct calls
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, _one_kv_copy(glob, cfg, tp), device="cuda")
+    del glob
+    torch.cuda.empty_cache()
+    params = eng.params
+    one = DpMesh(axes=("dp",), sizes=(1,), groups={})
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    pstep = make_serve_step(cfg, one, InputShape("p", s, b, "prefill"))
+    dstep = make_serve_step(cfg, one, InputShape("d", s_c, b, "decode"))
+    pstep(params, {"tokens": prompts})            # warm-up
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t1 = time.perf_counter()
+    logits = pstep(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    counts = build.launch_counts()
+    want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
+            "flash_attention": 0, "flash_attention_wgmma": sv["layers"],
+            "flash_attention_wide": 0}
+    if counts != want:
+        raise AssertionError(f"[tp-serve] prefill launches {counts}, "
+                             f"expected {want}")
+    with torch.inference_mode():
+        ref, caches = T.prefill(params, {"tokens": prompts}, cfg,
+                                cache_len=s_c)
+    if not torch.equal(logits, ref):
+        raise AssertionError("[tp-serve] the serve step's prefill is not "
+                             "bitwise prefill")
+    tok = logits[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+    with torch.inference_mode():
+        mine = {n: {k: t.clone() for k, t in lv.items()}
+                for n, lv in caches.items()}
+        ref2, _ = T.decode_step(params, {"tokens": tok}, caches, s, cfg)
+    got2, _ = dstep(params, {"tokens": tok}, mine, s)
+    if not torch.equal(got2, ref2) or not bool(torch.isfinite(got2).all()):
+        raise AssertionError("[tp-serve] the serve step's decode is not "
+                             "bitwise decode_step")
+    del caches, mine, ref, ref2, got2, logits
+    q, k, v = (torch.randn((b, cfg.n_heads // tp, s, cfg.head_dim),
+                           generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    got = FK.flash_attention(q, k, v, causal=True)
+    want_o = FR.sdpa(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want_o.float(), **FLASH_BF16_TOL)
+    flash_err = float((got.float() - want_o.float()).abs().max())
+    del q, k, v, got, want_o, eng, params
+    torch.cuda.empty_cache()
+    out["b"] = dict(prefill_ms=prefill_ms, launches=counts,
+                    flash_rank_shape=[b, cfg.n_heads // tp, s, cfg.head_dim],
+                    flash_max_abs_err=flash_err,
+                    seconds=time.perf_counter() - t0)
+    log(f"[tp-serve] 19b tp 1 through make_serve_step, batch {b} x prompt "
+        f"{s}: prefill {prefill_ms:.1f} ms, bitwise prefill / decode_step; "
+        f"launches {counts}; the wgmma route at a tp {tp} rank's shape "
+        f"{out['b']['flash_rank_shape']} against its plain version: max "
+        f"abs err {flash_err:.3e} ({FLASH_BF16_TOL})")
+    # 19c: the dry run of phase 5's configuration beside its measurements
+    t0 = time.perf_counter()
+    r = lower_one(MAIN["arch"], InputShape("phase5", MAIN["seq"],
+                                           MAIN["batch"], "train"),
+                  stage="compressed", mesh_override="1x1")
+    rl = r["roofline"]
+    busy = main_stats["profile"]["compressed"]["device_busy_ms"]
+    out["c"] = dict(traced_peak_bytes=r["memory"]["peak_bytes"],
+                    traced_arg_bytes=r["memory"]["arg_bytes"],
+                    measured_peak_bytes=main_stats["peak_bytes"],
+                    roofline=rl, bound_ms=1e3 * max(
+                        rl["t_compute_s"], rl["t_memory_s"],
+                        rl["t_collective_s"]),
+                    device_busy_ms=busy,
+                    predicted=r["memory_ledger"]["predicted"],
+                    seconds=time.perf_counter() - t0)
+    log(f"[tp-serve] 19c dry run of phase 5 (bert-large {MAIN['batch']} x "
+        f"{MAIN['seq']}, 1 x 1, compressed) in {r['trace_s']} s: traced "
+        f"peak {r['memory']['peak_bytes'] / 1e9:.3f} GB against phase 5's "
+        f"max_memory_allocated {main_stats['peak_bytes'] / 1e9:.3f} GB; "
+        f"roofline compute {rl['t_compute_s'] * 1e3:.2f} ms, memory "
+        f"{rl['t_memory_s'] * 1e3:.2f} ms, collective "
+        f"{rl['t_collective_s'] * 1e3:.2f} ms ({rl['bottleneck']}) against "
+        f"phase 6's compressed step device busy {busy:.1f} ms; kernels "
+        f"{rl['kernels']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3306,6 +3500,8 @@ def main() -> int:
     vision = phase_vision()
     torch.cuda.empty_cache()
     tp = phase_tp()
+    torch.cuda.empty_cache()
+    tp_serve = phase_tp_serve(stats)
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -3320,6 +3516,7 @@ def main() -> int:
         e["launches_serve_f32"] = serve_f32["launches"][e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
                                 for tag, f in family.items()}
+        e["launches_tp_serve_prefill"] = tp_serve["b"]["launches"][e["name"]]
         entries.append(e)
     for e in entries:
         e["kernel_ms"] = e["ms"]
@@ -3352,6 +3549,7 @@ def main() -> int:
     print(json.dumps({"serve_families": serve_families}))
     print(json.dumps({"vision": vision}))
     print(json.dumps({"tp": tp}))
+    print(json.dumps({"tp_serve": tp_serve}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

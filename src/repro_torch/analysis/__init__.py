@@ -6,4 +6,7 @@
                                              ready times
   * :mod:`repro_torch.analysis.scaling`    — predicted step time and
                                              throughput over cluster sizes
+  * :mod:`repro_torch.analysis.roofline`   — the roofline terms of one
+                                             traced step (the dry run's
+                                             counter)
 """

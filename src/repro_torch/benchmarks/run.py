@@ -54,7 +54,7 @@ from repro_torch.benchmarks import (block_size_ablation, comm_fraction,
                                     variance_stability)
 
 ALL = {
-    "comm_volume": comm_volume.run,
+    "comm_volume": comm_volume.run_check_plans,
     "comm_fraction": comm_fraction.run,
     "variance_stability": variance_stability.run,
     "convergence": convergence.run,

@@ -32,7 +32,7 @@ class AdamState(NamedTuple):
     count: torch.Tensor  # () i32
 
 
-def init(d: int, device="cpu") -> AdamState:
+def init(d: int, device="cuda") -> AdamState:
     return AdamState(m=torch.zeros(d, dtype=torch.float32, device=device),
                      v=torch.zeros(d, dtype=torch.float32, device=device),
                      count=torch.zeros((), dtype=torch.int32, device=device))

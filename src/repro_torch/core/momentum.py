@@ -48,7 +48,7 @@ class MomentumState(NamedTuple):
     count: torch.Tensor
 
 
-def init(d: int, n_dp: int, device="cpu") -> MomentumState:
+def init(d: int, n_dp: int, device="cuda") -> MomentumState:
     n = max(n_dp, 1)
     return MomentumState(m=_zeros(d, device), worker_err=_zeros(d, device),
                          server_err=_zeros(d // n, device),
@@ -77,7 +77,8 @@ class NaiveCompressedAdamState(NamedTuple):
     count: torch.Tensor
 
 
-def naive_init(d: int, n_dp: int, device="cpu") -> NaiveCompressedAdamState:
+def naive_init(d: int, n_dp: int, device="cuda"
+               ) -> NaiveCompressedAdamState:
     n = max(n_dp, 1)
     return NaiveCompressedAdamState(
         m=_zeros(d, device), v=_zeros(d, device),

@@ -62,7 +62,7 @@ class OneBitAdamState(NamedTuple):
     count: torch.Tensor       # () i32
 
 
-def init(d: int, n_dp: int, device="cpu") -> OneBitAdamState:
+def init(d: int, n_dp: int, device="cuda") -> OneBitAdamState:
     n = max(n_dp, 1)
     if d % n:
         raise ValueError(f"d={d} does not split over {n_dp} dp ranks")

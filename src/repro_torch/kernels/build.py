@@ -18,6 +18,7 @@ kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -26,7 +27,7 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
@@ -62,11 +63,34 @@ _LAUNCHES: Dict[str, int] = {"ef_compress": 0, "decompress": 0,
                              "flash_attention_wgmma": 0,
                              "flash_attention_wide": 0}
 _LIB: Optional[ctypes.CDLL] = None
+_RECORDERS: List[List[Tuple[str, object]]] = []
 
 
 def bump(name: str) -> None:
     """Count one launch of kernel ``name`` (called by its wrapper only)."""
     _LAUNCHES[name] += 1
+
+
+def meta_launch(name: str, cost) -> None:
+    """Hand a launch of kernel ``name`` that a wrapper's meta path (the dry
+    run) stands in for, with its declared cost (a
+    ``perf.kernel_cost.ComputeSpec``), to every recorder open
+    (:func:`recording`).  Nothing is launched, so the launch counts
+    (:func:`launch_counts`) do not move."""
+    for rec in _RECORDERS:
+        rec.append((name, cost))
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Tuple[str, object]]]:
+    """A list that receives (kernel name, cost) of every meta launch made
+    while the block runs."""
+    rec: List[Tuple[str, object]] = []
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -119,17 +119,28 @@ _run_wgmma = _launcher("repro_flash_attention_wgmma", _WGMMA_DTYPES,
                        "flash_attention_wgmma")
 
 
+def route(q: torch.Tensor) -> str:
+    """The launch counter of the kernel a query of q's dtype and head dim
+    routes to (:func:`flash_attention`)."""
+    if q.shape[-1] > MAX_HEAD_DIM:
+        return "flash_attention_wide"
+    if q.dtype in _WGMMA_DTYPES:
+        return "flash_attention_wgmma"
+    return "flash_attention"
+
+
+# each route's counter -> (the dtypes it takes, its launcher)
+_ROUTES = {"flash_attention_wide": (_WIDE_DTYPES, _run_wide),
+           "flash_attention_wgmma": (_WGMMA_DTYPES, _run_wgmma),
+           "flash_attention": (_F32_DTYPES, _run_f32)}
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None
                     ) -> torch.Tensor:
     """q/k/v: (B, H, S, D) on the card -> (B, H, S, D) in q's dtype.
     D <= 256: bf16 and fp16 take the wgmma kernel, f32 the split kernel;
     D > 256 takes the split kernel's wide route in every dtype."""
-    if q.shape[-1] > MAX_HEAD_DIM:
-        _check(q, k, v, window, _WIDE_DTYPES)
-        return with_padded_head_dim(_run_wide, q, k, v, causal, window)
-    if q.dtype in _WGMMA_DTYPES:
-        _check(q, k, v, window, _WGMMA_DTYPES)
-        return with_padded_head_dim(_run_wgmma, q, k, v, causal, window)
-    _check(q, k, v, window, _F32_DTYPES)
-    return with_padded_head_dim(_run_f32, q, k, v, causal, window)
+    dtypes, run = _ROUTES[route(q)]
+    _check(q, k, v, window, dtypes)
+    return with_padded_head_dim(run, q, k, v, causal, window)

@@ -1,7 +1,8 @@
 """Public fused Adam op with padding to the tile: the device decides.
 
 A CUDA tensor takes the Hopper kernel (``kernel.py``), a CPU tensor the
-plain version (``ref.py``); any other device raises.  As the reference's
+plain version (``ref.py``); a meta tensor (the dry run) gets empty outputs
+and counts a launch, computing nothing; any other device raises.  As the reference's
 wrapper (``src/repro/kernels/fused_adam/ops.py``), vectors are padded
 with zeros to a multiple of ``tile`` and the result is cut back to ``d``.
 """
@@ -11,8 +12,10 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.fused_adam import kernel as K
 from repro_torch.kernels.fused_adam import ref as R
+from repro_torch.perf import kernel_cost
 
 DEFAULT_TILE = 8192
 
@@ -23,6 +26,10 @@ def adam_step(x: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
               weight_decay: float = 0.0, tile: int = DEFAULT_TILE
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused BertAdam step on flat f32 vectors; pads to the tile size."""
+    if x.is_meta:
+        build.meta_launch("adam_step", kernel_cost.adam_update_cost(
+            x.shape[0] + (-x.shape[0]) % tile, fused=True))
+        return tuple(torch.empty_like(x) for _ in range(3))
     if x.is_cuda:
         step = K.adam_step
     elif x.device.type == "cpu":

@@ -1,1 +1,1 @@
-"""Training driver of the port."""
+"""Training driver of the port, its mesh, and the dry run."""

@@ -129,9 +129,10 @@ def lr_schedule(step: int, base_lr: float, lr_warmup: int,
 
 
 def resolve_device(device: str) -> torch.device:
-    """``cuda`` (this rank's card) or ``cpu``; cuda without a card raises."""
-    if device == "cpu":
-        return torch.device("cpu")
+    """``cuda`` (this rank's card), ``cpu``, or ``meta`` (the dry run,
+    ``launch.dryrun``: shapes only); cuda without a card raises."""
+    if device in ("cpu", "meta"):
+        return torch.device(device)
     if device != "cuda":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     if not torch.cuda.is_available():

@@ -2,8 +2,8 @@
 embeddings, GQA head repetition, causal / sliding-window masks, the
 prefill paths and KV-cached decode.
 
-Tensor parallelism (training; serving runs at tp = 1), this
-rank's shard of the reference's global layout at tp (``shard_dims``):
+Tensor parallelism (training and serving), this rank's shard of the
+reference's global layout at tp (``shard_dims``):
   wq (d, Hq_l * hd)    column-parallel, Hq_l = padded_heads(tp) / tp
   wk, wv (d, Hkv_l * hd)  column-parallel over the kv heads when
                        n_kv >= tp; otherwise each rank holds one kv head,
@@ -26,7 +26,9 @@ Prefill (``attn_forward``) takes one of the reference's paths by
 
 Decode (``decode_attn``) writes the new token's k/v into the cache in
 place (the reference returns an updated copy; the port saves the copy)
-and attends over the cache in f32.  A cache may be split along the
+and attends over the cache in f32.  Under tensor parallelism the cache
+holds this rank's kv heads (a duplicated kv head: its own copy) and the
+output closes with ``f_reduce``.  A cache may be split along the
 sequence over a group of ranks (``SeqGroup``, the reference's
 ``seq_axes``; flash-decoding): only the shard that holds the new slot
 writes it, each rank attends over its own slots, and the partial softmax
@@ -216,26 +218,29 @@ class SeqGroup:
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int,
-                  dtype=torch.bfloat16, device="cpu", seq_shards: int = 1
-                  ) -> Dict[str, torch.Tensor]:
-    """Zero KV cache of one attention layer, (B, S_c, Hkv, hd) each (global
-    shapes).  Sliding-window archs cache only the window (a ring buffer);
-    with ``seq_shards`` > 1 the sequence is rounded up to a multiple of
-    it, to be split over that many ranks."""
+                  dtype=torch.bfloat16, device="cpu", seq_shards: int = 1,
+                  tp: int = 1) -> Dict[str, torch.Tensor]:
+    """Zero KV cache of one attention layer, (B, S_c, tp * Hkv_l, hd) each
+    (global shapes at ``tp``: a kv head duplicated over the model ranks is
+    cached once a rank).  Sliding-window archs cache only the window (a
+    ring buffer); with ``seq_shards`` > 1 the sequence is rounded up to a
+    multiple of it, to be split over that many ranks."""
     if cfg.window:
         s = min(seq_len, cfg.window)
     else:
         s = -(-seq_len // seq_shards) * seq_shards
-    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, s, tp * shard_dims(cfg, tp)[1], cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def decode_attn(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                 pos: int, cfg: ArchConfig,
-                seq_group: Optional[SeqGroup] = None) -> torch.Tensor:
-    """One-token decode. x: (B, 1, d); cache k/v: (B, S_c, Hkv, hd), this
-    rank's shard of the sequence under ``seq_group``.
+                seq_group: Optional[SeqGroup] = None,
+                ctx: ParallelCtx = NO_TP) -> torch.Tensor:
+    """One-token decode. x: (B, 1, d); cache k/v: (B, S_c, Hkv_l, hd), this
+    rank's kv heads under ``ctx`` and its shard of the sequence under
+    ``seq_group``.
 
     ``pos`` is the absolute position of the new token (== the number of
     valid cache entries).  Writes the token's k/v into ``cache`` in place
@@ -245,9 +250,10 @@ def decode_attn(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         raise ValueError("a windowed (ring) KV cache is not split over the "
                          "sequence")
     b = x.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq, hkv, _ = shard_dims(cfg, ctx.tp)
+    hd = cfg.head_dim
     q, k_new, v_new = _qkv(p, x, cfg, torch.full((1, 1), pos,
-                                                 device=x.device))
+                                                 device=x.device), ctx)
     s_c = cache["k"].shape[1]
     shard, n_shards = (0, 1) if seq_group is None else \
         (seq_group.index, seq_group.size)
@@ -286,4 +292,4 @@ def decode_attn(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         dist.all_reduce(lo, group=seq_group.group)
         o = lo[..., :hd] / torch.clamp(lo[..., hd:], min=1e-30)
     o = o.to(x.dtype).reshape(b, 1, hq * hd)
-    return dense(o, p["wo"])
+    return f_reduce(dense(o, p["wo"]), ctx)

@@ -199,6 +199,15 @@ def tp_rank(ctx: ParallelCtx) -> int:
     return dist.get_rank(ctx.group) if ctx.tp > 1 else 0
 
 
+def gather_model(x: torch.Tensor, ctx: ParallelCtx, dim: int = -1
+                 ) -> torch.Tensor:
+    """Every model rank's ``x`` joined along ``dim`` in rank order, forward
+    only (the serving steps' vocab-sharded logits)."""
+    if ctx.tp == 1:
+        return x
+    return _gather(x, ctx.group, ctx.tp, dim)
+
+
 def sp_gather(x: torch.Tensor, ctx: ParallelCtx, dim: int = 1
               ) -> torch.Tensor:
     """(..., S/tp, ...) -> (..., S, ...): all-gather fwd, reduce-scatter

@@ -15,7 +15,7 @@ gated by ``silu(z)``.  The decay ``exp(dt * A)`` and the input ``(dt * x)
 * B`` of every timestep are elementwise and computed before the loop, so
 each step of the loop is one fused multiply-add.
 
-Tensor parallelism (training; serving runs at tp = 1) splits d_inner over
+Tensor parallelism (training and serving) splits d_inner over
 the model ranks: in_proj_x / in_proj_z, conv_w, dt_proj, dt_bias, A_log
 and D are this rank's channels; x_proj is row-parallel, closed by an
 ``f_reduce`` so that (dt_lowrank, B, C) are whole on every rank, then
@@ -168,9 +168,13 @@ def ssm_forward(p, x: torch.Tensor, cfg: ArchConfig,
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                   device="cpu") -> Dict[str, torch.Tensor]:
+                   device="cpu", tp: int = 1) -> Dict[str, torch.Tensor]:
     """Zero decode state of one layer: h (B, di, N) f32, the conv tail
-    (B, K-1, di) in ``dtype``."""
+    (B, K-1, di) in ``dtype`` (global shapes: at ``tp`` each model rank
+    holds di / tp of the channels)."""
+    if cfg.d_inner % tp:
+        raise ValueError(f"d_inner {cfg.d_inner} does not split over {tp} "
+                         "model ranks")
     di = cfg.d_inner
     return {"h": torch.zeros(batch, di, cfg.ssm_state, dtype=torch.float32,
                              device=device),
@@ -179,18 +183,20 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
 
 
 def decode_ssm(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               cfg: ArchConfig) -> torch.Tensor:
+               cfg: ArchConfig, ctx: ParallelCtx = NO_TP) -> torch.Tensor:
     """One-token decode. x: (B, 1, d); ``cache`` h (B, di, N), conv tail
-    (B, K-1, di).  Advances ``cache`` in place (each leaf in its own dtype)
-    and returns the layer output (B, 1, d)."""
+    (B, K-1, di) (di: this rank's channels under ``ctx``).  Advances
+    ``cache`` in place (each leaf in its own dtype) and returns the layer
+    output (B, 1, d)."""
     dt_ = x.dtype
-    xi = dense(x[:, 0, :], p["in_proj_x"])                 # (B, di)
-    z = dense(x[:, 0, :], p["in_proj_z"])
+    xin = g_copy(x, ctx)
+    xi = dense(xin[:, 0, :], p["in_proj_x"])               # (B, di)
+    z = dense(xin[:, 0, :], p["in_proj_z"])
     # the conv over [tail, x], in the wider of the two dtypes
     hist = torch.cat([cache["conv"], xi[:, None, :]], dim=1)
     w = p["conv_w"].to(dt_).to(hist.dtype)                 # (K, di)
     xi_c = F.silu(torch.einsum("bkc,kc->bc", hist, w))
-    dt, b_mat, c_mat, a = _ssm_params(p, xi_c[:, None, :], cfg)
+    dt, b_mat, c_mat, a = _ssm_params(p, xi_c[:, None, :], cfg, ctx)
     dtt, bt, ct = dt[:, 0], b_mat[:, 0], c_mat[:, 0]
     xf = xi_c.to(torch.float32)
     h = torch.exp(dtt[..., None] * a) * cache["h"] \
@@ -199,4 +205,4 @@ def decode_ssm(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = y.to(dt_) * F.silu(z)
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
-    return dense(y, p["out_proj"])[:, None, :]
+    return f_reduce(dense(y, p["out_proj"]), ctx)[:, None, :]

@@ -2,8 +2,8 @@
 (every family: the BERT encoder, the dense and MoE decoders, the Mamba-1
 SSM, the Jamba hybrid, the audio and VLM input stubs, at any tensor-
 parallel degree), and the serving forward passes of every decoding family
-at tp = 1 (``prefill``, ``init_caches``, ``cache_specs``,
-``decode_step``).
+at any tensor-parallel degree (``prefill``, ``init_caches``,
+``cache_specs``, ``shard_caches``, ``decode_step``).
 
 Parameters keep the reference's shapes and order: ``(d_in, d_out)``
 weights, the per-layer leaves stacked on a leading superblock axis under
@@ -47,6 +47,9 @@ the reference's tree, each leaf stacked the same way: ``{"l{i}": {"k",
 "conv"}}`` (B, di, N) f32 and (B, K-1, di) for an SSM layer, ``i`` the
 layer's place in the superblock (a dense arch: ``{"l0": {"k", "v"}}`` of
 shape (L, B, S_c, Hkv, hd)).  ``decode_step`` advances them in place.
+Under tensor parallelism (``ctx``) the params are a model rank's shards,
+its caches hold its kv heads and SSM channels (``cache_specs``), and the
+logits are its shard of the padded vocab.
 Every family decodes but the encoders; the audio stub takes
 ``{"embeddings"}``, the others ``{"tokens"}`` (the VLM's prefill also
 ``{"patch_embeds"}``).
@@ -532,15 +535,15 @@ def _superblock_params(params: Params, cfg: ArchConfig
     return out
 
 
-def _ffn(p, h: torch.Tensor, ffn: Optional[str], cfg: ArchConfig
-         ) -> torch.Tensor:
+def _ffn(p, h: torch.Tensor, ffn: Optional[str], cfg: ArchConfig,
+         ctx: ParallelCtx = NO_TP) -> torch.Tensor:
     """The residual FFN half of a serving layer (none for the SSM's)."""
     if ffn is None:
         return h
-    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
+    hn = rms_norm(h, rep_param(p["norm2"], ctx), cfg.norm_eps)
     if ffn == "moe":
-        return h + moe_forward(p["ffn"], hn, cfg)[0]
-    return h + mlp_forward(p["ffn"], hn, cfg)
+        return h + moe_forward(p["ffn"], hn, cfg, ctx)[0]
+    return h + mlp_forward(p["ffn"], hn, cfg, ctx)
 
 
 def check_serving(cfg: ArchConfig) -> None:
@@ -551,9 +554,12 @@ def check_serving(cfg: ArchConfig) -> None:
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-            cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
-    """Prefill forward: last-position logits (B, V_pad) in the compute
-    dtype and the decode caches seeded from the sequence.
+            cache_len: Optional[int] = None, ctx: ParallelCtx = NO_TP
+            ) -> Tuple[torch.Tensor, Any]:
+    """Prefill forward: last-position logits (B, V_l) in the compute dtype
+    (V_l: this rank's shard of the padded vocab under ``ctx``, all of it
+    at tp = 1) and the decode caches seeded from the sequence (this
+    rank's kv heads and SSM channels; ``params`` are its shards).
 
     ``cache_len``: total KV-cache capacity (>= prompt length, the prefix
     included) so decode steps have slots to append into; a windowed arch
@@ -562,19 +568,21 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     reference."""
     check_serving(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
-    h = _inputs_to_h0(params.get("embed"), batch, cfg, dtype)
+    h = _inputs_to_h0(params.get("embed"), batch, cfg, dtype, ctx)
     b, s = h.shape[:2]
     layout = superblock_layout(cfg)
     ring = bool(cfg.window) and s > cfg.window
     s_c = cfg.window if ring else max(s, cache_len or 0)
-    caches = init_caches(cfg, b, s_c, dtype, h.device)
+    caches = shard_caches(init_caches(cfg, b, s_c, dtype, "meta", tp=ctx.tp),
+                          cache_specs(cfg, False), 1, ctx.tp, h.device)
     eps = cfg.norm_eps
     for sb, layers in enumerate(_superblock_params(params, cfg)):
         for i, (mx, ff) in enumerate(layout):
             p, c = layers[f"l{i}"], caches[f"l{i}"]
-            hn = rms_norm(h, p["norm1"], eps)
+            hn = rms_norm(h, rep_param(p["norm1"], ctx), eps)
             if mx == "attn":
-                y, (k, v) = attn_forward(p["mixer"], hn, cfg, return_kv=True)
+                y, (k, v) = attn_forward(p["mixer"], hn, cfg, return_kv=True,
+                                         ctx=ctx)
                 if ring:
                     w = cfg.window
                     slots = torch.arange(s - w, s, device=h.device) % w
@@ -584,26 +592,33 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                     c["k"][sb][:, :s] = k
                     c["v"][sb][:, :s] = v
             else:
-                y, st = S.ssm_forward(p["mixer"], hn, cfg, return_state=True)
+                y, st = S.ssm_forward(p["mixer"], hn, cfg, return_state=True,
+                                      ctx=ctx)
                 c["h"][sb].copy_(st["h"])
                 c["conv"][sb].copy_(st["conv"])
-            h = _ffn(p, h + y, ff, cfg)
-    h = rms_norm(h[:, -1, :], params["norm_f"], eps)
-    return dense(h, params["w_out"]), caches
+            h = _ffn(p, h + y, ff, cfg, ctx)
+    return _head(params, h, cfg, ctx), caches
+
+
+def _head(params: Params, h: torch.Tensor, cfg: ArchConfig,
+          ctx: ParallelCtx) -> torch.Tensor:
+    """The last position's logits of this rank's vocab shard, (B, V_l)."""
+    h = rms_norm(h[:, -1, :], rep_param(params["norm_f"], ctx), cfg.norm_eps)
+    return dense(g_copy(h, ctx), params["w_out"])
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
-                dtype=torch.bfloat16, device="cpu", seq_shards: int = 1
-                ) -> Any:
+                dtype=torch.bfloat16, device="cpu", seq_shards: int = 1,
+                tp: int = 1) -> Any:
     """Zero decode caches in the reference's tree, each leaf stacked over
-    the superblocks (global shapes; ``seq_shards`` as
+    the superblocks (global shapes at ``tp``; ``seq_shards`` as
     ``attention.init_kv_cache``)."""
     nsb = n_superblocks(cfg)
     out = {}
     for i, (mx, _) in enumerate(superblock_layout(cfg)):
         one = A.init_kv_cache(cfg, batch, seq_len, dtype, "meta",
-                              seq_shards) if mx == "attn" else \
-            S.init_ssm_cache(cfg, batch, dtype, "meta")
+                              seq_shards, tp) if mx == "attn" else \
+            S.init_ssm_cache(cfg, batch, dtype, "meta", tp)
         out[f"l{i}"] = {k: torch.zeros((nsb,) + tuple(t.shape),
                                        dtype=t.dtype, device=device)
                         for k, t in one.items()}
@@ -611,50 +626,73 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
 
 
 def cache_specs(cfg: ArchConfig, seq_sharded: bool) -> Any:
-    """The dim of each cache leaf that is split over the dp ranks, in the
-    tree of :func:`init_caches` (None: replicated), as the reference's
-    ``cache_specs`` at tp = 1: the batch (dim 1) of every leaf; the
-    sequence (dim 2) of a full-attention KV cache under ``seq_sharded``,
-    where the windowed caches and the SSM state are replicated."""
+    """Each cache leaf's (dp dim, model-axis dim) in the tree of
+    :func:`init_caches` (None: replicated), as the reference's
+    ``cache_specs``: over dp the batch (dim 1) of every leaf, or under
+    ``seq_sharded`` the sequence (dim 2) of a full-attention KV cache,
+    the windowed caches and the SSM state replicated; over the model axis
+    the kv heads (dim 3), the SSM state's channels (``h`` dim 2) and the
+    conv tail's channels (dim 3)."""
     out = {}
     for i, (mx, _) in enumerate(superblock_layout(cfg)):
         if mx == "attn":
             dim = (None if cfg.window else 2) if seq_sharded else 1
-            out[f"l{i}"] = {"k": dim, "v": dim}
+            out[f"l{i}"] = {"k": (dim, 3), "v": (dim, 3)}
         else:
             dim = None if seq_sharded else 1
-            out[f"l{i}"] = {"h": dim, "conv": dim}
+            out[f"l{i}"] = {"h": (dim, 2), "conv": (dim, 3)}
+    return out
+
+
+def shard_caches(full: Any, specs: Any, n_dp: int, tp: int, device) -> Any:
+    """Zero caches of one rank's slice of the global tree ``full`` (any
+    device; only its shapes and dtypes are read): each leaf's dp dim
+    divided by ``n_dp`` and its model dim by ``tp``, as ``specs``
+    (:func:`cache_specs`) names them."""
+    out = {}
+    for name, leaves in full.items():
+        out[name] = {}
+        for k, t in leaves.items():
+            shp = list(t.shape)
+            for dim, n in zip(specs[name][k], (n_dp, tp)):
+                if dim is not None:
+                    if shp[dim] % n:
+                        raise ValueError(f"cache {name}.{k} dim {dim} of "
+                                         f"{shp[dim]} does not split over "
+                                         f"{n} ranks")
+                    shp[dim] //= n
+            out[name][k] = torch.zeros(shp, dtype=t.dtype, device=device)
     return out
 
 
 def decode_step(params: Params, batch: Dict[str, torch.Tensor], caches: Any,
                 pos: int, cfg: ArchConfig,
-                seq_group: Optional[A.SeqGroup] = None
-                ) -> Tuple[torch.Tensor, Any]:
+                seq_group: Optional[A.SeqGroup] = None,
+                ctx: ParallelCtx = NO_TP) -> Tuple[torch.Tensor, Any]:
     """One decode step: one new token per sequence against the caches.
 
     batch: {"tokens": (B, 1)} or {"embeddings": (B, 1, d)}; ``pos`` is the
     new token's absolute position; ``seq_group``: the ranks the
     full-attention KV caches are split over along the sequence (None: not
-    split).  Updates ``caches`` in place and returns (logits (B, V_pad),
+    split); ``ctx``: the model axis (``params`` and ``caches`` this rank's
+    shards).  Updates ``caches`` in place and returns (logits (B, V_l),
     caches)."""
     check_serving(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     if cfg.embed_kind == "embeddings":
         h = batch["embeddings"].to(dtype)
     else:
-        h = F.embedding(batch["tokens"].long(), params["embed"]).to(dtype)
+        h = embed_tokens(params["embed"], batch["tokens"], ctx, dtype)
     layout = superblock_layout(cfg)
     eps = cfg.norm_eps
     for sb, layers in enumerate(_superblock_params(params, cfg)):
         for i, (mx, ff) in enumerate(layout):
             p = layers[f"l{i}"]
             c = {k: t[sb] for k, t in caches[f"l{i}"].items()}
-            hn = rms_norm(h, p["norm1"], eps)
+            hn = rms_norm(h, rep_param(p["norm1"], ctx), eps)
             if mx == "attn":
-                y = A.decode_attn(p["mixer"], hn, c, pos, cfg, seq_group)
+                y = A.decode_attn(p["mixer"], hn, c, pos, cfg, seq_group, ctx)
             else:
-                y = S.decode_ssm(p["mixer"], hn, c, cfg)
-            h = _ffn(p, h + y, ff, cfg)
-    h = rms_norm(h[:, -1, :], params["norm_f"], eps)
-    return dense(h, params["w_out"]), caches
+                y = S.decode_ssm(p["mixer"], hn, c, cfg, ctx)
+            h = _ffn(p, h + y, ff, cfg, ctx)
+    return _head(params, h, cfg, ctx), caches

@@ -25,8 +25,15 @@ output written once:
     materialises the m/v EMAs and the update: 6 reads + 5 writes over 5
     kernels.
 
+  * ``csrc/flash_attn_sm90*.cu``: reads q, k, v and writes o once
+    (4 B H S D elements), and does 4 D operations for every (query, key)
+    pair the mask lets through (:func:`flash_attention_cost`).
+
 These are the byte counts of PERF.md's bound column, and the tests pin
-the closed forms to the reference's (``tests/test_torch_perf.py``).
+the closed forms to the reference's (``tests/test_torch_perf.py``).  The
+dry run (``launch.dryrun``) prices every kernel launch of a traced step
+with them (``ef_compress_cost``, ``decompress_cost``,
+``adam_update_cost(fused=True)``, ``flash_attention_cost``).
 """
 from __future__ import annotations
 
@@ -94,3 +101,41 @@ def combine_cost(d_total: int, n: int) -> ComputeSpec:
     return ComputeSpec(flops=float(d_total),
                        hbm_bytes=F32 * (d_total + d_total // max(n, 1)),
                        kernels=1)
+
+
+def ef_compress_cost(d: int, block: int) -> ComputeSpec:
+    """``repro_ef_compress`` over ``d`` f32 elements: reads x and err,
+    writes new_err, the d/8 packed bytes and one f32 scale a block."""
+    return ComputeSpec(flops=4.0 * d,
+                       hbm_bytes=3 * F32 * d + d // 8 + F32 * (d // block),
+                       kernels=1)
+
+
+def decompress_cost(d: int, block: int) -> ComputeSpec:
+    """``repro_decompress`` of ``d`` elements: reads the payload, writes d
+    f32."""
+    return ComputeSpec(flops=2.0 * d,
+                       hbm_bytes=F32 * d + d // 8 + F32 * (d // block),
+                       kernels=1)
+
+
+def attention_pairs(s: int, causal: bool = True, window=None) -> int:
+    """(query, key) pairs a length-``s`` self-attention mask lets through:
+    s^2 unmasked; causal, key j <= query i; a window of w, also j > i - w
+    (the masks of ``models.attention._causal_mask``)."""
+    if not causal:
+        return s * s if window is None else \
+            sum(s - max(i - window + 1, 0) for i in range(s))
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_attention_cost(b: int, h: int, s: int, d: int, itemsize: int,
+                         causal: bool = True, window=None) -> ComputeSpec:
+    """One flash-attention launch on (B, H, S, D): q, k, v read and o
+    written once; q.k and p.v, 2 D operations each, for every pair the
+    mask lets through."""
+    return ComputeSpec(flops=4.0 * b * h * d * attention_pairs(s, causal,
+                                                                window),
+                       hbm_bytes=4 * b * h * s * d * itemsize, kernels=1)

@@ -47,7 +47,7 @@ bucket (:func:`overlap_applies`); every other step takes the serial
 path, with the same numerics.
 
 ``make_serve_step`` is the serving side: a prefill or decode step over
-the dp mesh (batch-sharded, or seq-sharded flash-decoding for a batch
+the dp x tp mesh (batch-sharded, or seq-sharded flash-decoding for a batch
 smaller than the mesh), as the reference's.
 """
 from __future__ import annotations
@@ -413,55 +413,58 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
 
 def make_serve_step(cfg: ArchConfig, mesh, shape: InputShape,
                     device: str = "cuda"):
-    """This rank's prefill or decode step for ``shape`` on the dp mesh
-    ``mesh`` (a ``launch.mesh.DpMesh``), as the reference's
-    ``make_serve_step`` at tp = 1.
+    """This rank's prefill or decode step for ``shape`` on the mesh
+    ``mesh`` (a ``launch.mesh.DpMesh``: dp ranks x a model axis of
+    ``mesh.tp``), as the reference's ``make_serve_step``.
 
-    Every rank is given the same global batch and takes its part of it:
-    prefill ``step(params, batch) -> logits`` and decode ``step(params,
-    batch, caches, pos) -> (logits, caches)`` split the batch over the dp
-    ranks and return this rank's rows.  A decode batch smaller than the
-    rank count (``long_500k``: one sequence) is ``seq_sharded``: every
-    rank takes the whole batch, the full-attention KV caches are split
-    along the sequence and combined flash-decoding style over the mesh's
-    dp group (``attention.SeqGroup``); the SSM states and the windowed
-    ring caches are replicated.  ``step.cache_specs`` is the split dim of
-    each cache leaf (``transformer.cache_specs``) and
-    ``step.init_caches(batch=None, dtype=torch.bfloat16)`` this rank's
-    slice of the reference's global zero caches, on the step's device
-    (``cuda`` unless the caller asks for ``cpu``)."""
+    ``params`` are this model rank's shards of the serving tree
+    (``convert.shard_params``; the whole tree at tp = 1).  Every rank is
+    given the same global batch and takes its part of it: prefill
+    ``step(params, batch) -> logits`` and decode ``step(params, batch,
+    caches, pos) -> (logits, caches)`` split the batch over the dp ranks
+    and return this dp rank's rows, with every model rank's vocab shard
+    joined: (B / n_dp, V_pad), the reference's ``out_specs=P(dp,
+    model)``.  A decode batch smaller than the dp count (``long_500k``:
+    one sequence) is ``seq_sharded``: every rank takes the whole batch,
+    the full-attention KV caches are split along the sequence and
+    combined flash-decoding style over this model rank's dp group
+    (``attention.SeqGroup``); the SSM states and the windowed ring caches
+    are replicated over dp.  ``step.cache_specs`` is each cache leaf's
+    (dp dim, model dim) (``transformer.cache_specs``)
+    and ``step.init_caches(batch=None, dtype=torch.bfloat16)`` this
+    rank's slice on both axes of the reference's global zero caches, on
+    the step's device (``cuda`` unless the caller asks for ``cpu``)."""
     from repro_torch.launch.train import resolve_device
     from repro_torch.models import transformer as T
     from repro_torch.models.attention import SeqGroup
+    from repro_torch.models.common import gather_model
     if shape.kind not in ("prefill", "decode"):
         raise ValueError(f"a serve step is a prefill or a decode, not "
                          f"{shape.kind!r}")
     T.check_serving(cfg)
     dev = resolve_device(device)
-    n_dp = mesh.n_dp
+    n_dp, ctx = mesh.n_dp, mesh.parallel_ctx()
     group = mesh.groups.get(tuple(mesh.axes)) if n_dp > 1 else None
-    rank = dist.get_rank(group) if n_dp > 1 else 0
+    rank = mesh.dp_rank
     seq_sharded = shape.kind == "decode" and shape.global_batch < n_dp
-
-    def split(n: int, what: str) -> int:
-        if n % n_dp:
-            raise ValueError(f"{what} of {n} does not split over {n_dp} dp "
-                             "ranks")
-        return n // n_dp
 
     def local(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if seq_sharded:
             return {k: v.to(dev) for k, v in batch.items()}
         out = {}
         for k, v in batch.items():
-            per = split(v.shape[0], "a batch")
+            if v.shape[0] % n_dp:
+                raise ValueError(f"a batch of {v.shape[0]} does not split "
+                                 f"over {n_dp} dp ranks")
+            per = v.shape[0] // n_dp
             out[k] = v[rank * per:(rank + 1) * per].to(dev)
         return out
 
     if shape.kind == "prefill":
         def serve_step(params, batch):
             with torch.inference_mode():
-                return T.prefill(params, local(batch), cfg)[0]
+                logits = T.prefill(params, local(batch), cfg, ctx=ctx)[0]
+                return gather_model(logits, ctx)
         serve_step.seq_sharded = False
         return serve_step
 
@@ -471,21 +474,15 @@ def make_serve_step(cfg: ArchConfig, mesh, shape: InputShape,
 
     def serve_step(params, batch, caches, pos):
         with torch.inference_mode():
-            return T.decode_step(params, local(batch), caches, int(pos), cfg,
-                                 seq_group)
+            logits, caches = T.decode_step(params, local(batch), caches,
+                                           int(pos), cfg, seq_group, ctx)
+            return gather_model(logits, ctx), caches
 
     def init_caches(batch: Optional[int] = None, dtype=torch.bfloat16):
         full = T.init_caches(cfg, batch or shape.global_batch, shape.seq_len,
-                             dtype, "meta", n_dp if seq_sharded else 1)
-        out = {}
-        for name, leaves in full.items():
-            out[name] = {}
-            for k, t in leaves.items():
-                shp, dim = list(t.shape), specs[name][k]
-                if dim is not None:
-                    shp[dim] = split(shp[dim], f"cache dim {dim}")
-                out[name][k] = torch.zeros(shp, dtype=t.dtype, device=dev)
-        return out
+                             dtype, "meta", n_dp if seq_sharded else 1,
+                             mesh.tp)
+        return T.shard_caches(full, specs, n_dp, mesh.tp, dev)
 
     serve_step.seq_sharded = seq_sharded
     serve_step.cache_specs = specs

@@ -136,8 +136,12 @@ def test_identity_ef_compress_matches_reference():
 
 
 def test_devices_without_a_path_raise():
-    """No quiet fallback: the kernel wrapper takes CUDA tensors only, and
-    the dispatcher raises for devices that are neither cuda nor cpu."""
+    """No quiet fallback: the kernel wrapper takes CUDA tensors only; a
+    meta tensor (the dry run) gets empty meta outputs of the kernel's
+    shapes and a recorded stand-in launch that leaves the launch counts
+    alone, and is never computed on another device."""
+    from repro_torch.kernels import build
+    from repro_torch.perf import kernel_cost
     x = torch.zeros(512)
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.ef_compress_fused(x, x, 256)
@@ -145,8 +149,17 @@ def test_devices_without_a_path_raise():
         tkernel.decompress(torch.zeros(64, dtype=torch.uint8),
                            torch.zeros(2), 256)
     meta = torch.empty(512, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        tops.ef_compress_fused(meta, meta, 256)
+    before = build.launch_counts()
+    with build.recording() as rec:
+        packed, scales, new_err = tops.ef_compress_fused(meta, meta, 256)
+    assert build.launch_counts() == before
+    assert rec == [("ef_compress", kernel_cost.ef_compress_cost(512, 256))]
+    assert [(t.device.type, tuple(t.shape), t.dtype) for t in
+            (packed, scales, new_err)] == [
+        ("meta", (64,), torch.uint8), ("meta", (2,), torch.float32),
+        ("meta", (512,), torch.float32)]
+    with pytest.raises(ValueError, match="block_size"):
+        tops.ef_compress_fused(meta, meta, 300)
 
 
 @pytest.mark.parametrize("block", [8, 40, 520])

@@ -256,7 +256,7 @@ def test_adam_matches_reference(bias_correction, wd):
     jcfg = JA.AdamConfig(weight_decay=wd, bias_correction=bias_correction)
     tcfg = TA.AdamConfig(weight_decay=wd, bias_correction=bias_correction)
     jx, jst = jnp.asarray(x), JA.init(d)
-    tx, tst = torch.from_numpy(x), TA.init(d)
+    tx, tst = torch.from_numpy(x), TA.init(d, device="cpu")
     for _ in range(10):
         g = (rng.standard_normal(d) * 0.01).astype(np.float32)
         jx, jst = JA.update(jnp.asarray(g), jst, jx, jcfg, jnp.float32(1e-2))
@@ -281,7 +281,7 @@ def test_warmup_equals_adam():
     d = 256
     grad = _quad(1, d)
     x1 = x2 = torch.zeros(d)
-    st1, st2 = OB.init(d, 1), TA.init(d)
+    st1, st2 = OB.init(d, 1, device="cpu"), TA.init(d, device="cpu")
     for _ in range(20):
         g = grad(x1)
         x1, st1, _ = OB.warmup_update(g, st1, x1, OB.OneBitAdamConfig(),
@@ -297,7 +297,7 @@ def test_identity_compression_is_preconditioned_momentum_sgd():
     d = 256
     cfg = OB.OneBitAdamConfig(compression=CompressionConfig(kind="identity"))
     v = torch.sin(torch.arange(d, dtype=torch.float32)).abs() + 0.5
-    st = OB.init(d, 1)._replace(v=v)
+    st = OB.init(d, 1, device="cpu")._replace(v=v)
     x, m_ref = torch.ones(d), torch.zeros(d)
     grad = _quad(2, d)
     for _ in range(10):
@@ -313,7 +313,7 @@ def test_identity_compression_is_preconditioned_momentum_sgd():
 def test_v_frozen_in_compression_stage():
     d = 1024
     cfg = OB.OneBitAdamConfig(compression=CompressionConfig(block_size=256))
-    st = OB.init(d, 1)._replace(v=torch.ones(d))
+    st = OB.init(d, 1, device="cpu")._replace(v=torch.ones(d))
     x = torch.ones(d)
     _, st2, stats = OB.compressed_update(_quad(3, d)(x), st, x, cfg, 1e-2)
     assert torch.equal(st2.v, st.v)
@@ -327,7 +327,8 @@ def test_hierarchical_raises_with_pod_axes_and_is_flat_without():
     hier = OB.OneBitAdamConfig(compression=CompressionConfig(block_size=256),
                                hierarchical=True)
     g = _quad(4, d)(torch.zeros(d))
-    st = OB.init(d, 1)._replace(v=torch.full((d,), 0.5))
+    st = OB.init(d, 1, device="cpu")._replace(
+        v=torch.full((d,), 0.5))
     x = torch.ones(d)
     with pytest.raises(NotImplementedError,
                        match=r"src/repro/core/onebit_adam\.py:108"):

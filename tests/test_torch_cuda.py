@@ -1057,3 +1057,133 @@ def test_nccl_tp_path_a_overlap_bitwise_serial(card, tmp_path):
         assert r["n_buckets"] == 2 and r["overlap_bwd"], r["n_buckets"]
         assert not r["twin_overlap_bwd"]
         assert r["twin_bitwise"], (r["losses"], r["twin_losses"])
+
+
+# the tensor-parallel serving slice: the reduced families at 1 x 2, 1 x 4
+# and 2 x 2 against one card's tp = 1, and path S
+TP_SERVE_ARCHS = ["llama3.2-3b", "granite-34b", "falcon-mamba-7b",
+                  "mixtral-8x22b", "jamba-1.5-large-398b", "internvl2-2b",
+                  "musicgen-large"]
+TP_SERVE_MESHES = {2: [(a, "1x2", False) for a in TP_SERVE_ARCHS],
+                   4: [(a, "1x4", False) for a in TP_SERVE_ARCHS]
+                   + [(a, "2x2", q) for a in ("llama3.2-3b",
+                                              "falcon-mamba-7b")
+                      for q in (False, True)]}
+PATH_S = dict(arch="granite-34b", mesh="1x4", batch=8, prompt=2048,
+              new_tokens=32, seed=0,
+              parity=dict(layers=8, batch=2, prompt=512, steps=4, seed=1))
+
+
+def test_nccl_tp_serve_reduced_parity(card, tmp_path):
+    """The reduced decoding families through ``make_serve_step`` on NCCL
+    ranks at 1 x 2, 1 x 4 and 2 x 2 (batch- and seq-sharded), in f32 with
+    TF32 off: prefill logits (vocab shards joined), caches joined over
+    both axes and 4 decode steps against one card's tp = 1 serving of the
+    same model (rtol / atol 1e-4, seq-sharded 2e-4), held up to the first
+    step where a MoE token routes differently
+    (``_torch_tp_serve_worker``)."""
+    import torch.multiprocessing as mp
+    import _torch_tp_serve_worker as worker
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    _four_cards()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    for world, cases in TP_SERVE_MESHES.items():
+        workdir = tmp_path / f"w{world}"
+        workdir.mkdir()
+        refs, spec = {}, {}
+        for arch, mesh, seq in cases:
+            name = f"{arch}@{mesh}" + ("-seq" if seq else "")
+            cfg = get_config(arch + "-smoke")
+            tp = int(mesh.split("x")[-1])
+            one = TT.init_params(cfg, torch.Generator().manual_seed(0))
+            plan = worker.case_plan(cfg, seq)
+            pre, steps = worker.make_inputs(
+                cfg, 2 if seq else 1, plan["batch"], max(plan["prompt"], 1),
+                len(plan["positions"]))
+            ref = worker.port_reference(
+                cfg, {k: v.to(card) for k, v in one.items()}, pre, steps,
+                plan, card)
+            refs[name] = dict(ref, pre=pre, steps=steps)
+            pfile = f"params_{arch}_tp{tp}.npz"
+            np.savez(workdir / pfile, **{
+                k: v.numpy() for k, v in worker.expand_kv(one, cfg,
+                                                          tp).items()})
+            spec[name] = worker.write_inputs(
+                str(workdir), name, dict(arch=arch, mesh=mesh,
+                                         seq_sharded=seq), refs[name], pfile)
+        worker.write_case(str(workdir), world, spec)
+        mp.start_processes(worker.serve_main,
+                           args=(world, str(workdir), "nccl"),
+                           nprocs=world, start_method="spawn")
+        for name, c in spec.items():
+            ranks = [np.load(workdir / f"{name}_r{r}.npz")
+                     for r in range(world)]
+            tol = dict(rtol=2e-4, atol=2e-4) if c["seq_sharded"] else \
+                dict(rtol=1e-4, atol=1e-4)
+            counts, err = worker.check_case(
+                refs[name], ranks, get_config(c["arch"]), c["mesh"],
+                c["seq_sharded"], tol)
+            report[name] = {"rerouted": counts, "max_abs_err": err}
+            assert c["seq_sharded"] or counts[0] == 0, name
+    print("[tp-serve] reduced families (rerouted MoE tokens a phase, max "
+          "abs err against tp = 1): " + str(report))
+
+
+def test_nccl_tp_serve_path_s_granite(card, tmp_path):
+    """Path S: granite-34b at full size (88 layers, d 6144, 48 q / 1 kv
+    heads, d_ff 24576, vocab 49152; 47.25 B parameters, 94.5 GB in bf16)
+    on a 1 x 4 mesh in bf16 with attn_impl="pallas": batch 8 x prompt
+    2048 through the prefill step (one wgmma flash launch a layer a
+    rank), then 32 greedy decode steps, the same tokens on every rank;
+    prefill ms, decode ms a step, tokens/s, peak bytes a card and one
+    profiled decode step's kernels and idle share printed.  Before it,
+    the model cut to 8 layers in f32 with TF32 off: the prefill's and 4
+    decode steps' logits at tp 4 within 1e-4 of max |logit| of rank 0's
+    tp = 1 model (``_torch_tp_serve_worker.path_s_main``)."""
+    import json
+    import subprocess
+    import torch.multiprocessing as mp
+    import _torch_tp_serve_worker as worker
+    from repro_torch.configs import get_config
+    _four_cards()
+    with open(tmp_path / "path_s.json", "w") as f:
+        json.dump(PATH_S, f)
+    mp.start_processes(worker.path_s_main, args=(4, str(tmp_path)),
+                       nprocs=4, start_method="spawn")
+    ranks = [json.load(open(tmp_path / f"path_s_r{r}.json"))
+             for r in range(4)]
+    cfg = get_config(PATH_S["arch"])
+    for p in ranks[0]["parity"]:
+        assert p["max_abs_err"] <= 1e-4 * p["max_abs_logit"], p
+    for r in ranks:
+        assert r["prefill_finite"]
+        assert r["prefill_launches"]["flash_attention_wgmma"] == \
+            cfg.n_layers
+        assert sum(r["prefill_launches"].values()) == cfg.n_layers
+        assert r["tokens"] == ranks[0]["tokens"]
+    b, n = PATH_S["batch"], PATH_S["new_tokens"]
+    dec = sorted(ranks[0]["decode_ms"])
+    med = dec[len(dec) // 2]
+    summary = {
+        "cards": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().replace("\n", " | "),
+        "parity": ranks[0]["parity"], "parity_s": ranks[0]["parity_s"],
+        "draw_s": ranks[0]["draw_s"],
+        "rank_param_gb": ranks[0]["rank_param_bytes"] / 1e9,
+        "prefill_ms": [r["prefill_ms"] for r in ranks],
+        "prefill_tokens_per_s": b * PATH_S["prompt"]
+        / (ranks[0]["prefill_ms"] / 1e3),
+        "decode_ms_median": med, "decode_ms_min": dec[0],
+        "decode_ms_max": dec[-1],
+        "decode_tokens_per_s": b / (med / 1e3),
+        "tokens_per_s": b * n / ((ranks[0]["prefill_ms"]
+                                  + sum(ranks[0]["decode_ms"])) / 1e3),
+        "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+        "profile": ranks[0]["profile"],
+        "idle_share": [r["profile"]["idle_share"] for r in ranks]}
+    print("[tp-serve] path S: " + json.dumps(summary))

@@ -75,6 +75,16 @@ def test_devices_without_a_path_raise():
     x = torch.zeros(8192)
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.adam_step(x, x, x, x, 1e-3)
+    # a meta tensor (the dry run): empty meta outputs and a recorded
+    # stand-in launch that leaves the launch counts alone
+    from repro_torch.kernels import build
+    from repro_torch.perf import kernel_cost
     meta = torch.empty(8192, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        tops.adam_step(meta, meta, meta, meta, 1e-3)
+    before = build.launch_counts()
+    with build.recording() as rec:
+        out = tops.adam_step(meta, meta, meta, meta, 1e-3)
+    assert build.launch_counts() == before
+    assert rec == [("adam_step",
+                    kernel_cost.adam_update_cost(8192, fused=True))]
+    assert [(t.device.type, tuple(t.shape)) for t in out] == \
+        [("meta", (8192,))] * 3

@@ -130,11 +130,11 @@ def _spy_routes(monkeypatch):
     port, ref = [], []
     tmoe, jmoe = TT.moe_forward, JM.moe_forward
 
-    def tspy(p, x, cfg):
+    def tspy(p, x, cfg, *a, **kw):
         logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
         port.append(torch.topk(torch.softmax(logits, -1), cfg.moe_top_k,
                                -1)[1].numpy())
-        return tmoe(p, x, cfg)
+        return tmoe(p, x, cfg, *a, **kw)
 
     def jspy(p, x, cfg, ctx, *a, **kw):
         logits = x.reshape(-1, x.shape[-1]).astype(jnp.float32) \
@@ -485,7 +485,9 @@ def test_cache_tree_matches_reference(arch):
         want = JT.cache_specs(jcfg, "model", ("data",), seq_sharded)
         got = TT.cache_specs(cfg, seq_sharded)
         assert {n: {k: _split_dim(s) for k, s in leaves.items()}
-                for n, leaves in want.items()} == got
+                for n, leaves in want.items()} == \
+            {n: {k: dims[0] for k, dims in leaves.items()}
+             for n, leaves in got.items()}
 
 
 @pytest.mark.parametrize("arch", list_archs())
