@@ -276,6 +276,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                and roofline terms printed beside phase 5's
                ``max_memory_allocated`` and phase 6's device-busy ms.
                Prints the ``{"tp_serve": {...}}`` line.
+ 20. overlap-bwd — ``benchmarks.overlap_check --bwd``'s micro (a chain of
+               4 ``tanh(h @ w)`` layers of width 64, 2 buckets, block 512)
+               on one rank on the card against the same call on the CPU:
+               with the identity compressor the exchange returns the chain
+               gradient (rtol 1e-5 / atol 1e-7, TF32 off); with the 1-bit
+               compressor on the CPU's gradients landed through the same
+               hooks, ef_compress / decompress against their plain
+               versions (output +-scale at rtol 1e-6, EF slots at rtol
+               1e-5 / atol 1e-6); then the micro's own backward pass with
+               the 1-bit exchange, the launch counts set to 0 just before
+               and read just after (2 ef_compress and 2 decompress a
+               bucket, no adam_step), held to the CPU at the same
+               tolerances.  Then ``run_bwd`` on this one card (its rank a
+               spawned process, so its profiler session is the first in
+               that process) prints SKIP (one rank: no collective) and
+               reports the matmul kernels its trace finds through their
+               correlation ids.  Prints the
+               ``{"overlap_bwd": {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
@@ -283,8 +301,8 @@ phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
 phase 12, the sweep and the auto run in phase 13, the observed run in
 phase 14a, each card run of phase 15a and the full-width run of 15b, each
 card run of phase 16a and the generate calls of 16b and 16c, each harness
-entry of 17b, each run of 17c and the prefill of 19b) and read just
-after it.  It prints the
+entry of 17b, each run of 17c, the prefill of 19b and the micro's 1-bit
+run of phase 20) and read just after it.  It prints the
 ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3442,6 +3460,93 @@ def phase_tp_serve(main_stats) -> dict:
     return out
 
 
+# phase 20: the micro of overlap_check --bwd (the reference's sizes)
+OVERLAP_BWD = dict(block=512, n_buckets=2, n_layers=4, width=64)
+
+
+def _close20(tag: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
+             atol: float) -> float:
+    got, want = got.cpu(), want.cpu()
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"[overlap-bwd] {tag}: card vs CPU off by "
+                             f"{float((got - want).abs().max()):.3e} "
+                             f"(rtol {rtol}, atol {atol})")
+    return float((got - want).abs().max())
+
+
+def phase_overlap_bwd() -> dict:
+    """Phase 20: overlap_check --bwd's micro on the card against the CPU,
+    its kernels counted, and run_bwd on one card (see the module
+    docstring)."""
+    import io
+    from contextlib import redirect_stdout
+    from repro_torch.benchmarks import overlap_check as OC
+    from repro_torch.kernels import build
+    from repro_torch.optim.compressors import IdentityCompressor
+    ob, t_phase = OVERLAP_BWD, time.perf_counter()
+    kw = dict(mesh_shape=(1,), block=ob["block"], n_buckets=ob["n_buckets"],
+              n_layers=ob["n_layers"], width=ob["width"])
+    ident = IdentityCompressor(block_size=ob["block"])
+    d = ob["n_layers"] * ob["width"] ** 2
+    g_card = OC.build_bwd_exchange(comp=ident, device="cuda", **kw)[0]
+    g_cpu = OC.build_bwd_exchange(comp=ident, device="cpu", **kw)[0]
+    out = {"grad_max_abs_err": _close20("chain gradient", g_card, g_cpu,
+                                        1e-5, 1e-7)}
+    w = ob["width"]
+    grads = [g_cpu[i * w * w:(i + 1) * w * w].reshape(w, w).numpy()
+             for i in range(ob["n_layers"])]
+    errs = {}
+    for tag, extra in (("landed", dict(grads=grads)), ("backward", {})):
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = OC.build_bwd_exchange(device="cuda", **kw, **extra)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = build.launch_counts()
+        cpu = OC.build_bwd_exchange(device="cpu", **kw, **extra)
+        errs[tag] = max(
+            _close20(f"{tag} out", card[0], cpu[0], 1e-6, 0.0),
+            _close20(f"{tag} worker_err", card[1], cpu[1], 1e-5, 1e-6),
+            _close20(f"{tag} server_err", card[2], cpu[2], 1e-5, 1e-6))
+        nb = ob["n_buckets"]
+        want = {"adam_step": 0, "ef_compress": 2 * nb, "decompress": 2 * nb}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"[overlap-bwd] {tag}: launches {got}, "
+                                 f"expected {want}")
+        if not all(bool(torch.isfinite(t).all()) for t in card):
+            raise AssertionError(f"[overlap-bwd] {tag}: non-finite output")
+        out[tag] = {"max_abs_err": errs[tag], "launches": counts,
+                    "host_ms": ms}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        res = OC.run_bwd((1,), ob["block"], ob["n_buckets"], device="cuda")
+    text = buf.getvalue()
+    if "[SKIP] one rank: no collective" not in text or res["pairs"] != 0:
+        raise AssertionError(f"[overlap-bwd] run_bwd on one card: {text}")
+    # 4 forward matmuls, and 7 in backward (no input gradient for x)
+    if res["n_dots"] < 7:
+        raise AssertionError(f"[overlap-bwd] run_bwd found {res['n_dots']} "
+                             "backward matmul kernels, at least 7 expected")
+    out["run_bwd"] = {"pairs": res["pairs"], "n_dots": res["n_dots"],
+                      "backward_passes": res["ranks"][0]["backward_passes"],
+                      "seconds": time.perf_counter() - t0}
+    out["d"] = d
+    out["seconds"] = time.perf_counter() - t_phase
+    counts = {k: out["backward"]["launches"][k]
+              for k in ("adam_step", "ef_compress", "decompress")}
+    log(f"[overlap-bwd] micro (d {d}, {ob['n_buckets']} buckets, block "
+        f"{ob['block']}) card vs CPU: chain gradient max abs err "
+        f"{out['grad_max_abs_err']:.3e}; 1-bit exchange of landed "
+        f"gradients {errs['landed']:.3e}, of the backward pass "
+        f"{errs['backward']:.3e} with launches {counts}; "
+        f"run_bwd on one card: {text.strip().splitlines()[-1].strip()} "
+        f"({res['n_dots']} backward matmul kernels found by correlation); "
+        f"phase 20 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3502,6 +3607,8 @@ def main() -> int:
     tp = phase_tp()
     torch.cuda.empty_cache()
     tp_serve = phase_tp_serve(stats)
+    torch.cuda.empty_cache()
+    overlap_bwd = phase_overlap_bwd()
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -3530,6 +3637,8 @@ def main() -> int:
             serve_families["mamba"]["launches"][e["name"]]
         e["launches_serve_mixtral"] = \
             serve_families["mixtral"]["launches"][e["name"]]
+        e["launches_overlap_bwd"] = \
+            overlap_bwd["backward"]["launches"][e["name"]]
         e["launches_vision"] = dict(
             {k: c["launches"][e["name"]]
              for k, c in vision["claims"].items()},
@@ -3550,6 +3659,7 @@ def main() -> int:
     print(json.dumps({"vision": vision}))
     print(json.dumps({"tp": tp}))
     print(json.dumps({"tp_serve": tp_serve}))
+    print(json.dumps({"overlap_bwd": overlap_bwd}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ import torch.distributed as dist
 from repro_torch.plan import executor as _exec
 from repro_torch.plan import schedules as _sched
 
+AxisNames = Tuple[str, ...]
 Errs = Dict[str, torch.Tensor]
 
 
@@ -168,3 +169,18 @@ def compressed_allreduce(x: torch.Tensor, worker_err: torch.Tensor,
         comp, n_buckets=n_buckets)
     return out, errs["worker"], errs["server"]
 
+
+def compressed_allreduce_hierarchical(x, errs: Errs,
+                                      inner_axes: Sequence[str],
+                                      outer_axes: Sequence[str], comp,
+                                      n_buckets: int = 1
+                                      ) -> Tuple[torch.Tensor, Errs]:
+    """The two-level exchange: worker compress, all_to_all and mean over
+    the intra-pod ``inner_axes``, the server chunk re-reduced across pods
+    over ``outer_axes``, then server compress and all_gather within the
+    pod.  ``errs`` holds ``worker`` (D,) and ``server`` (D/n_inner,), and
+    for a sparse compressor ``outer`` and ``outer_ag`` too (extra keys
+    pass through).  Returns ``(out, new_errs)``: the reference's
+    signature, over :func:`compressed_exchange`."""
+    return compressed_exchange(x, errs, inner_axes, outer_axes, comp,
+                               n_buckets=n_buckets)

@@ -26,7 +26,8 @@ from repro_torch.kernels.onebit.ref import pack_signs, unpack_signs
 
 __all__ = ["DEFAULT_BLOCK", "CompressionConfig", "padded_length",
            "pack_signs", "unpack_signs", "compress_onebit",
-           "decompress_onebit", "ef_compress", "wire_bytes"]
+           "decompress_onebit", "ef_compress", "ef_decompress",
+           "wire_bytes", "compression_error_norm"]
 
 DEFAULT_BLOCK = _ops.DEFAULT_BLOCK  # elements per scale block
 
@@ -80,8 +81,27 @@ def ef_compress(x: torch.Tensor, err: torch.Tensor, cfg: CompressionConfig
     return (packed, scales), new_err
 
 
+def ef_decompress(payload: Tuple[torch.Tensor, torch.Tensor],
+                  cfg: CompressionConfig) -> torch.Tensor:
+    """The value a payload of :func:`ef_compress` stands for: the raw
+    buffer under kind="identity", else the decompressed signs."""
+    packed, scales = payload
+    if cfg.kind == "identity":
+        return packed
+    return decompress_onebit(packed, scales, cfg.block_size)
+
+
 def wire_bytes(d: int, cfg: CompressionConfig) -> int:
     """Bytes on the wire for a d-element float32 payload under cfg."""
     if cfg.kind == "identity":
         return 4 * d
     return d // 8 + 4 * (d // cfg.block_size)
+
+
+def compression_error_norm(x: torch.Tensor, block_size: int = DEFAULT_BLOCK
+                           ) -> torch.Tensor:
+    """||x - decompress(compress(x))||: the diagnostic of Assumption 1's
+    eps."""
+    packed, scales = compress_onebit(x, block_size)
+    return torch.linalg.vector_norm(
+        x - decompress_onebit(packed, scales, block_size))

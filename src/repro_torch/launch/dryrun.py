@@ -219,7 +219,8 @@ def lower_one(arch: str, shape_name: Union[str, InputShape],
     (default: the production mesh, 16 x 16, or 2 x 16 x 16 with
     ``multi_pod``).  ``cfg_overrides``: ``ArchConfig`` field overrides."""
     from repro_torch.analysis.roofline import H100
-    from repro_torch.launch.mesh import build_mesh, parse_mesh
+    from repro_torch.launch.mesh import (MULTI_POD_MESH, PRODUCTION_MESH,
+                                         build_mesh, parse_mesh)
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -227,7 +228,7 @@ def lower_one(arch: str, shape_name: Union[str, InputShape],
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; one of {STAGES}")
     if mesh_override is None:
-        mesh_override = (2, 16, 16) if multi_pod else (16, 16)
+        mesh_override = MULTI_POD_MESH if multi_pod else PRODUCTION_MESH
     dp_sizes, tp = parse_mesh(mesh_override)
     spec = "x".join(str(s) for s in dp_sizes + (tp,))
     t0 = time.time()

@@ -37,6 +37,10 @@ from repro_torch.plan import executor as _exec
 FLAT_AXES = ("dp",)
 POD_AXES = ("pod", "data")
 MODEL_AXIS = "model"
+# the reference's production meshes: one pod of 16 dp x 16 model ranks,
+# and two such pods
+PRODUCTION_MESH = (16, 16)
+MULTI_POD_MESH = (2, 16, 16)
 
 
 def parse_mesh(spec) -> Tuple[Tuple[int, ...], int]:
@@ -161,3 +165,34 @@ def build_mesh(spec) -> DpMesh:
     _exec.set_groups(groups)
     return DpMesh(axes=axes, sizes=sizes, groups=groups, tp=tp,
                   model_group=model_group, kv_groups=tuple(kv_groups))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DpMesh:
+    """The reference's production mesh, 16 x 16 (or 2 x 16 x 16), built
+    over the default process group, which must hold its 256 (512) ranks:
+    as many cards under ``torchrun``, or ``launch.dryrun.fake_world`` for
+    the dry run."""
+    return build_mesh(MULTI_POD_MESH if multi_pod else PRODUCTION_MESH)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> DpMesh:
+    """:func:`build_mesh` of ``shape`` with its axes named ``axes`` (the
+    reference's helper): a trailing ``"model"`` is the model axis, the
+    others are the dp axes, at most two (pods leading).  The executor's
+    group map is keyed by these names, so a collective over ``axes``
+    finds its group."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         "length")
+    has_model = bool(axes) and axes[-1] == MODEL_AXIS
+    dp_names = axes[:-1] if has_model else axes
+    if not 1 <= len(dp_names) <= 2:
+        raise ValueError(f"axes {axes}: one or two dp axes, then an "
+                         f"optional {MODEL_AXIS!r}")
+    mesh = build_mesh(shape if has_model else shape + (1,))
+    rename = dict(zip(mesh.axes, dp_names))
+    groups = {tuple(rename.get(a, a) for a in k): g
+              for k, g in mesh.groups.items()}
+    _exec.set_groups(groups)
+    return dataclasses.replace(mesh, axes=dp_names, groups=groups)

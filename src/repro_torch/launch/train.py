@@ -101,7 +101,8 @@ from repro_torch.convert import (flat_from_params, params_from_flat,
                                  shard_params, unshard_params)
 from repro_torch.data import SyntheticStream
 from repro_torch.kernels import build
-from repro_torch.launch.mesh import build_mesh, mesh_axes, pod_split
+from repro_torch.launch.mesh import (build_mesh, mesh_axes, parse_mesh,
+                                     pod_split)
 from repro_torch.models.transformer import (global_leaf_shapes, init_params,
                                             leaf_shapes, param_specs)
 from repro_torch.obs import (AUDIT_MODES, MEMORY_MODES, FiniteGuard,
@@ -111,11 +112,11 @@ from repro_torch.optim import WarmupSwitch, get_optimizer
 from repro_torch.plan import autotune, get_cluster
 from repro_torch.plan.schedules import (allreduce_schedule, flat_schedule,
                                         hier_schedule, needs_outer_ef)
-from repro_torch.state import StateLayout, bucket_sizes_for
+from repro_torch.state import bucket_sizes_for
 from repro_torch.state.checkpoint import load_train_state, save_train_state
 from repro_torch.train.step import (exchange_axes, flat_dim,
                                     init_train_state, overlap_applies,
-                                    train_step)
+                                    state_layout_ctx, train_step)
 
 CKPT_EVERY = 100
 
@@ -236,6 +237,41 @@ def resolve_schedule(topology, pipeline, overlap_bwd,
     out_ob = best.overlap_bwd if ob_auto else overlap
     return (best.topology if topo_auto else topology, out_nb,
             out_ob and out_nb > 1, tuned)
+
+
+def _mesh_dims(mesh) -> tuple:
+    """(dp sizes, model axis size) of a built ``DpMesh`` or a ``--mesh``
+    spelling."""
+    if hasattr(mesh, "sizes"):
+        return tuple(mesh.sizes), mesh.tp
+    return parse_mesh(mesh)
+
+
+def resolve_topology(topology: str, cluster: str, cfg, mesh,
+                     compressor: str = "onebit", block_size: int = 4096,
+                     compressor_kwargs=None, verbose: bool = True,
+                     **kw) -> str:
+    """``topology="auto"`` with serial execution (see
+    :func:`resolve_schedule`, which takes ``kw``: ``device_spec``,
+    ``batch``, ``seq``); ``mesh`` is a ``DpMesh`` or a ``--mesh``
+    spelling."""
+    dp_sizes, tp = _mesh_dims(mesh)
+    return resolve_schedule(topology, "off", "off", cluster, cfg, dp_sizes,
+                            compressor, block_size, compressor_kwargs,
+                            verbose=verbose, tp=tp, **kw)[0]
+
+
+def resolve_pipeline(pipeline, topology: str, cluster: str, cfg, mesh,
+                     compressor: str = "onebit", block_size: int = 4096,
+                     compressor_kwargs=None, verbose: bool = True,
+                     **kw) -> int:
+    """``pipeline="auto"`` with the topology pinned and no backward
+    overlap (see :func:`resolve_topology`)."""
+    dp_sizes, tp = _mesh_dims(mesh)
+    return resolve_schedule(topology, pipeline, "off", cluster, cfg,
+                            dp_sizes, compressor, block_size,
+                            compressor_kwargs, verbose=verbose, tp=tp,
+                            **kw)[1]
 
 
 def run_plans(optim, d_pad: int, dp_axes, dp_sizes, topology: str):
@@ -616,10 +652,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
                           ctx=dpm.parallel_ctx(), seq_parallel=seq_parallel)
     del params
     slots = optim.state_slots(layout)
-    state_ctx = StateLayout(
-        d=d_pad, n_dp=n_dp, n_srv=n_inner if hier else n_dp,
-        n_outer=n_outer if hier else 1, n_segments=ts.segs.n,
-        dp_sizes=dpm.sizes, tp=tp)
+    state_ctx = state_layout_ctx(cfg, dpm, block_size, topology)
     shapes = leaf_shapes(cfg, tp)
     specs = param_specs(cfg)
     start_step, io_s = 0, {}

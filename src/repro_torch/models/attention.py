@@ -81,6 +81,20 @@ def attn_shapes(cfg: ArchConfig, tp: int = 1) -> Dict[str, Tuple[int, ...]]:
 ATTN_SPECS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
 
 
+def attn_param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
+    """{leaf: the dim split over the model axis} of one attention layer
+    (the reference's PartitionSpecs in the form of ``param_specs``)."""
+    return dict(ATTN_SPECS)
+
+
+def init_attn(generator: torch.Generator, cfg: ArchConfig, tp: int = 1
+              ) -> Dict[str, torch.Tensor]:
+    """One attention layer's global leaves at ``tp`` (kv heads repeated
+    for n_kv < tp), drawn as ``transformer.init_params`` draws them."""
+    from repro_torch.models.transformer import init_layer
+    return init_layer(cfg, "mixer", attn_shapes(cfg, tp), generator, tp)
+
+
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(B, S, Hkv, hd) -> (B, S, Hkv * n_rep, hd) by head repetition."""
     if n_rep == 1:

@@ -272,6 +272,16 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+def init_linear(generator: torch.Generator, d_in: int, d_out: int,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """A (d_in, d_out) f32 weight, N(0, scale^2) with scale 1/sqrt(d_in)
+    by default (the reference's ``init_linear``; ``init_params`` draws
+    the stacked leaves with the same law)."""
+    scale = scale if scale is not None else d_in ** -0.5
+    return torch.randn((d_in, d_out), generator=generator,
+                       device=generator.device) * scale
+
+
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
     """XLA's SAME padding (low, high) of one spatial dim: the output has
     ceil(size / stride) positions and the odd pixel goes to the high side,

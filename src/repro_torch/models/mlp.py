@@ -39,7 +39,7 @@ mean p_e`` over the top-1 choices.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +52,29 @@ from repro_torch.models.common import (NO_TP, ParallelCtx, dense, f_reduce,
 # the dim of each leaf split over the model axis (None: replicated)
 MLP_SPECS = {"wg": 1, "wu": 1, "wd": 0}
 MOE_SPECS = {"router": None, "wg": 0, "wu": 0, "wd": 0}
+
+
+def mlp_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Global shapes of one dense MLP layer's leaves (``wu`` for SwiGLU
+    only)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    out = {"wg": (d, ff), "wd": (ff, d)}
+    if cfg.mlp_kind == "swiglu":
+        out["wu"] = (d, ff)
+    return out
+
+
+def mlp_param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
+    """{leaf: the dim split over the model axis} of one dense MLP."""
+    return {k: MLP_SPECS[k] for k in mlp_shapes(cfg)}
+
+
+def init_mlp(generator: torch.Generator, cfg: ArchConfig, tp: int = 1
+             ) -> Dict[str, torch.Tensor]:
+    """One dense MLP layer's leaves, drawn as ``init_params`` draws
+    them."""
+    from repro_torch.models.transformer import init_layer
+    return init_layer(cfg, "ffn", mlp_shapes(cfg), generator, tp)
 
 
 def mlp_forward(p, x: torch.Tensor, cfg: ArchConfig,
@@ -91,6 +114,20 @@ def moe_shapes(cfg: ArchConfig, tp: int = 1) -> Dict[str, Tuple[int, ...]]:
     d, nb = cfg.d_model, tp * e_per
     return {"router": (d, cfg.n_experts), "wg": (nb, d, ff_l),
             "wu": (nb, d, ff_l), "wd": (nb, ff_l, d)}
+
+
+def moe_param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
+    """{leaf: the dim split over the model axis} of one MoE layer (the
+    expert blocks; the router replicated)."""
+    return dict(MOE_SPECS)
+
+
+def init_moe(generator: torch.Generator, cfg: ArchConfig, tp: int = 1
+             ) -> Dict[str, torch.Tensor]:
+    """One MoE layer's global leaves at ``tp`` (expert blocks stacked on a
+    leading axis), drawn as ``init_params`` draws them."""
+    from repro_torch.models.transformer import init_layer
+    return init_layer(cfg, "ffn", moe_shapes(cfg, tp), generator, tp)
 
 
 def moe_capacity(cfg: ArchConfig, t: int) -> int:

@@ -54,6 +54,28 @@ SSM_SPECS = {"in_proj_x": 1, "in_proj_z": 1, "conv_w": 1, "x_proj": 0,
              "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
 
 
+def ssm_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Global shapes of one Mamba-1 mixer's leaves."""
+    d, di, st, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    return {"A_log": (di, st), "D": (di,), "conv_w": (cfg.ssm_conv, di),
+            "dt_bias": (di,), "dt_proj": (r, di), "in_proj_x": (d, di),
+            "in_proj_z": (d, di), "out_proj": (di, d),
+            "x_proj": (di, r + 2 * st)}
+
+
+def ssm_param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
+    """{leaf: the dim split over the model axis} of one Mamba-1 mixer."""
+    return dict(SSM_SPECS)
+
+
+def init_ssm(generator: torch.Generator, cfg: ArchConfig, tp: int = 1
+             ) -> Dict[str, torch.Tensor]:
+    """One Mamba-1 mixer's leaves, drawn as ``init_params`` draws
+    them."""
+    from repro_torch.models.transformer import init_layer
+    return init_layer(cfg, "mixer", ssm_shapes(cfg), generator, tp)
+
+
 def init_leaf(leaf: str, shape, generator: torch.Generator) -> torch.Tensor:
     """One of :data:`SPECIAL_LEAVES` at ``shape`` (its leading axes are
     the stacked superblocks), with the reference's distribution: A_log =

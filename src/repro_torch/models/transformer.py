@@ -107,27 +107,15 @@ def _layer_shapes(cfg: ArchConfig, n: int, mixer: str,
                   ffn: Optional[str], tp: int = 1) -> dict:
     """The global leaves of one layer kind at ``tp``, stacked over ``n``
     superblocks."""
-    d, ff = cfg.d_model, cfg.d_ff
-    tree = {"norm1": (n, d)}
-    if mixer == "attn":
-        tree["mixer"] = {k: (n,) + v
-                         for k, v in A.attn_shapes(cfg, tp).items()}
-    else:
-        di, st, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-        tree["mixer"] = {
-            "A_log": (n, di, st), "D": (n, di),
-            "conv_w": (n, cfg.ssm_conv, di), "dt_bias": (n, di),
-            "dt_proj": (n, r, di),
-            "in_proj_x": (n, d, di), "in_proj_z": (n, d, di),
-            "out_proj": (n, di, d), "x_proj": (n, di, r + 2 * st)}
-    if ffn == "moe":
-        tree["ffn"] = {k: (n,) + v for k, v in M.moe_shapes(cfg, tp).items()}
-    elif ffn == "dense":
-        tree["ffn"] = {"wg": (n, d, ff), "wd": (n, ff, d)}
-        if cfg.mlp_kind == "swiglu":
-            tree["ffn"]["wu"] = (n, d, ff)
+    def stacked(shapes):
+        return {k: (n,) + v for k, v in shapes.items()}
+    tree = {"norm1": (n, cfg.d_model),
+            "mixer": stacked(A.attn_shapes(cfg, tp) if mixer == "attn"
+                             else S.ssm_shapes(cfg))}
     if ffn is not None:
-        tree["norm2"] = (n, d)
+        tree["ffn"] = stacked(M.moe_shapes(cfg, tp) if ffn == "moe"
+                              else M.mlp_shapes(cfg))
+        tree["norm2"] = (n, cfg.d_model)
     return tree
 
 
@@ -137,13 +125,12 @@ def _layer_specs(cfg: ArchConfig, mixer: str, ffn: Optional[str]) -> dict:
     def stacked(specs):
         return {k: None if v is None else v + 1 for k, v in specs.items()}
     tree = {"norm1": None,
-            "mixer": stacked(A.ATTN_SPECS if mixer == "attn"
-                             else S.SSM_SPECS)}
+            "mixer": stacked(A.attn_param_specs(cfg) if mixer == "attn"
+                             else S.ssm_param_specs(cfg))}
     if ffn is not None:
         tree["norm2"] = None
-        tree["ffn"] = stacked(M.MOE_SPECS if ffn == "moe" else M.MLP_SPECS)
-        if ffn == "dense" and cfg.mlp_kind != "swiglu":
-            del tree["ffn"]["wu"]
+        tree["ffn"] = stacked(M.moe_param_specs(cfg) if ffn == "moe"
+                              else M.mlp_param_specs(cfg))
     return tree
 
 
@@ -254,6 +241,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             t = shard_leaf(t, specs[path], tp, rank)
         params[path] = t.to(device=device, dtype=torch.float32)
     return params
+
+
+def init_layer(cfg: ArchConfig, sub: str, shapes: Dict[str, Tuple[int, ...]],
+               generator: torch.Generator, tp: int = 1
+               ) -> Dict[str, torch.Tensor]:
+    """One layer's global leaves of ``shapes`` (unstacked), drawn as
+    :func:`init_params` draws the stacked ``blocks.l0.<sub>`` leaves, in
+    ravel order: the per-module ``init_*`` views."""
+    return {k: _draw(cfg, f"blocks.l0.{sub}.{k}", (1,) + tuple(shapes[k]),
+                     tp, generator)[0].float()
+            for k in sorted(shapes)}
 
 
 def _sub(views: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -41,7 +41,6 @@ verdicts.  Host-side only: nothing here touches a tensor of the step.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 MEMORY_MODES = ("off", "on")
@@ -163,18 +162,13 @@ def predict_ledger(cfg, dp_sizes: Sequence[int] = (1,), *, optim=None,
     at zero) and ``spec`` the :class:`~repro_torch.plan.ClusterSpec`
     whose links and device schedule the pipelined watermark timeline."""
     from repro_torch.analysis.model_math import activation_bytes, param_bytes
-    from repro_torch.launch.mesh import mesh_axes, pod_split
-    from repro_torch.state import StateLayout, state_bytes
-    from repro_torch.train.step import flat_dim, segment_info
+    from repro_torch.launch.mesh import DpMesh, mesh_axes
+    from repro_torch.state import state_bytes
+    from repro_torch.train.step import state_layout_ctx
     dp_sizes = tuple(int(s) for s in dp_sizes)
-    n_dp = max(math.prod(dp_sizes), 1)
-    d = flat_dim(cfg, n_dp, block, tp)
-    n_srv, n_outer = n_dp, 1
-    if topology == "hier" and len(dp_sizes) > 1:
-        _, _, n_srv, n_outer = pod_split(mesh_axes(dp_sizes), dp_sizes)
-    ctx = StateLayout(d=d, n_dp=n_dp, n_srv=n_srv, n_outer=n_outer,
-                      n_segments=segment_info(cfg, d, tp).n,
-                      dp_sizes=dp_sizes, tp=tp)
+    ctx = state_layout_ctx(cfg, DpMesh(mesh_axes(dp_sizes), dp_sizes, {},
+                                       tp=tp), block, topology)
+    n_dp, d = ctx.n_dp, ctx.d
     if optim is None:
         from repro_torch.optim.base import TwoStageOptimizer
         optim = TwoStageOptimizer()

@@ -43,8 +43,10 @@ on a log dir copied off the machine that produced it.
 from __future__ import annotations
 
 import bisect
+import glob
 import gzip
 import json
+import os
 import re
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -103,6 +105,30 @@ def load_trace_events(path: str) -> List[dict]:
     return [e for e in events
             if isinstance(e, dict) and e.get("ph") == "X"
             and "ts" in e and "dur" in e]
+
+
+def find_trace_files(profile_dir: str, rank: Optional[int] = None
+                     ) -> List[str]:
+    """The chrome-trace JSON(.gz) files under ``profile_dir``: the
+    ``trace_rank<r>.json`` that ``launch.train --profile`` writes (only
+    rank ``rank``'s when given), and any ``*.trace.json`` of a profiler's
+    trace handler; sorted by name."""
+    pats = ([f"trace_rank{rank}.json", f"trace_rank{rank}.json.gz"]
+            if rank is not None else
+            ["trace_rank*.json", "trace_rank*.json.gz", "*.trace.json",
+             "*.trace.json.gz"])
+    return sorted({f for pat in pats
+                   for f in glob.glob(os.path.join(profile_dir, pat))})
+
+
+def load_profile_dir(profile_dir: str, rank: Optional[int] = None
+                     ) -> List[dict]:
+    """Every trace event of :func:`find_trace_files`' files (rank
+    ``rank``'s alone when given, as a per-rank check wants them)."""
+    events: List[dict] = []
+    for path in find_trace_files(profile_dir, rank):
+        events += load_trace_events(path)
+    return events
 
 
 # --------------------------------------------------------------------------

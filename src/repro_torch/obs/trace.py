@@ -82,6 +82,21 @@ def op_scope(plan_name: str, stage: int, op, bucket: Optional[int] = None):
                                      bucket))
 
 
+# the range around each backward pass of a training step (tracing on):
+# a trace's backward windows, which ``benchmarks.overlap_check --bwd``
+# reads
+BACKWARD_SPAN = "train.backward"
+
+
+def scope(name: str):
+    """A ``record_function`` range named ``name`` when tracing is on, the
+    shared nullcontext otherwise."""
+    if not _ENABLED:
+        return _NULL
+    from torch.profiler import record_function
+    return record_function(name)
+
+
 class Tracer:
     """Host-side wall-clock spans, recorded and (optionally) emitted as
     ``span`` events to a telemetry sink.

@@ -143,6 +143,11 @@ class Issued:
     scope: Tuple[str, int, Optional[int]] = ("plan", 0, None)
 
 
+# the op kinds issue_op lowers, each inside its op_scope (the profile
+# fold parses every one back to its grid cell)
+SCOPED_KINDS = ("AllGather", "AllReduce", "AllToAll")
+
+
 def scoped_op_names(plan: CommPlan) -> Tuple[str, ...]:
     """The range names one serial ``execute_plan`` run opens (tracing
     on), one per op: the expected coverage of a profile fold."""
@@ -173,6 +178,9 @@ def _issue(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
         work = dist.all_reduce(value, group=group_of(op.axes),
                                async_op=True)
         return Issued(op, comp, errs, value=value, works=(work,))
+    if op.kind not in SCOPED_KINDS:
+        raise NotImplementedError(f"the executor lowers {SCOPED_KINDS}, "
+                                  f"not {op.kind}")
     payload, errs = _compress(op, comp, value, errs, err_out)
     if not op.axes:
         return Issued(op, comp, errs, payload=payload)

@@ -13,6 +13,8 @@ from typing import Sequence, Tuple
 from repro_torch.plan.ir import (AllGather, AllReduce, AllToAll, CommPlan,
                                  WireSpec)
 
+AxisNames = Tuple[str, ...]
+
 
 def _f32(d: int) -> Tuple[WireSpec, ...]:
     return (WireSpec("float32", (d,)),)

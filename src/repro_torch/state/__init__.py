@@ -5,8 +5,9 @@ slots)."""
 from repro_torch.state.slots import (CHUNK_DIVISORS, EXTENTS, REPLICATIONS,
                                      SlotSpec, StateLayout, StateTree,
                                      ef_errs, flat_layout, global_shapes,
-                                     init_rank_state, slot_length,
-                                     state_bytes)
+                                     init_global_state, init_rank_state,
+                                     rank_shapes, slot_length, state_bytes,
+                                     state_specs)
 from repro_torch.state.layout import (bucket_sizes_for, canonicalize_state,
                                       ef_element_map, ef_slot_perm,
                                       from_canonical, layout_manifest,
@@ -16,6 +17,7 @@ __all__ = [
     "CHUNK_DIVISORS", "EXTENTS", "REPLICATIONS", "SlotSpec", "StateLayout",
     "StateTree", "bucket_sizes_for", "canonicalize_state", "ef_element_map",
     "ef_errs", "ef_slot_perm", "flat_layout", "from_canonical",
-    "global_shapes", "init_rank_state", "layout_manifest", "manifest_json",
-    "slot_length", "state_bytes", "to_canonical",
+    "global_shapes", "init_global_state", "init_rank_state",
+    "layout_manifest", "manifest_json", "rank_shapes", "slot_length",
+    "state_bytes", "state_specs", "to_canonical",
 ]

@@ -30,9 +30,11 @@ EF slots also name the plan error slot they back (``ef=``) and whether
 their run layout follows the pipeline bucket structure
 (``bucket_keyed=True``; see ``repro_torch.state.layout``).
 
-The port's copy of ``repro/state/slots.py``; the PartitionSpecs of the
-reference (``state_specs``) have no counterpart, since each process here
-is one rank and holds its per-rank tensors.
+The port's copy of ``repro/state/slots.py``.  Each process here is one
+rank and holds its per-rank tensors; the global arrays
+(:func:`init_global_state`) are what a checkpoint stores, and
+:func:`state_specs` names the mesh axis of each of their dims, as the
+reference's PartitionSpecs do.
 """
 from __future__ import annotations
 
@@ -204,15 +206,22 @@ class StateTree(Mapping):
 DTYPES = {"float32": torch.float32, "int32": torch.int32}
 
 
-def init_rank_state(slots: Sequence[SlotSpec], ctx: StateLayout,
-                    device="cpu") -> StateTree:
-    """Zeros per-rank state on ``device``."""
+def rank_shapes(slots: Sequence[SlotSpec], ctx: StateLayout
+                ) -> StateTree:
+    """Per-rank (shape, torch dtype) pairs: what the optimizer's update
+    consumes on one rank."""
     out = {}
     for s in slots:
         n = slot_length(s, ctx)
-        out[s.name] = torch.zeros(() if n is None else (n,),
-                                  dtype=DTYPES[s.dtype], device=device)
+        out[s.name] = (() if n is None else (n,), DTYPES[s.dtype])
     return StateTree(out)
+
+
+def init_rank_state(slots: Sequence[SlotSpec], ctx: StateLayout,
+                    device="cpu") -> StateTree:
+    """Zeros per-rank state on ``device``."""
+    return rank_shapes(slots, ctx).map(
+        lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device))
 
 
 def global_shapes(slots: Sequence[SlotSpec], ctx: StateLayout
@@ -230,6 +239,34 @@ def global_shapes(slots: Sequence[SlotSpec], ctx: StateLayout
         lead = (tuple(ctx.dp_sizes) if s.replication != "replicated"
                 else ())
         out[s.name] = (lead + (ctx.tp, n), np.dtype(s.dtype))
+    return StateTree(out)
+
+
+def init_global_state(slots: Sequence[SlotSpec], ctx: StateLayout,
+                      abstract: bool = False, device="cpu") -> StateTree:
+    """Zeros of :func:`global_shapes` (every rank's state in one array a
+    slot) on ``device``; ``abstract=True`` gives meta tensors (shapes
+    and dtypes only)."""
+    dev = "meta" if abstract else device
+    return global_shapes(slots, ctx).map(
+        lambda sd: torch.zeros(sd[0], dtype=DTYPES[sd[1].name], device=dev))
+
+
+def state_specs(slots: Sequence[SlotSpec], dp_axes: Sequence[str],
+                model_axis: str = "model") -> StateTree:
+    """The mesh axis of each dim of :func:`global_shapes`' arrays (None:
+    not split), as a tuple a slot, the entries of the reference's
+    PartitionSpec: ``(model, None)`` for a replicated slot, ``(*dp_axes,
+    model, None)`` for per-dp-rank and dp-sharded ones, ``()`` for a
+    scalar."""
+    out = {}
+    for s in slots:
+        if s.extent == "scalar":
+            out[s.name] = ()
+        elif s.replication == "replicated":
+            out[s.name] = (model_axis, None)
+        else:
+            out[s.name] = (*dp_axes, model_axis, None)
     return StateTree(out)
 
 

@@ -46,6 +46,12 @@ applies to a compressed-stage step with ``sync=True`` and more than one
 bucket (:func:`overlap_applies`); every other step takes the serial
 path, with the same numerics.
 
+``flat_grads`` is the front half of the step on its own (the gradient
+the step would exchange, as the reference's), and ``flat_grad_parts`` cuts
+a gradient tree into the per-bucket parts of backward overlap.  With
+tracing on, each backward pass runs inside a ``train.backward`` range
+(``obs.trace.BACKWARD_SPAN``), the window ``overlap_check --bwd`` reads.
+
 ``make_serve_step`` is the serving side: a prefill or decode step over
 the dp x tp mesh (batch-sharded, or seq-sharded flash-decoding for a batch
 smaller than the mesh), as the reference's.
@@ -61,17 +67,20 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.convert import flat_from_params
+from repro_torch.convert import flat_from_params, ravel_shapes
 from repro_torch.core import comm
 from repro_torch.core.compression import padded_length
+from repro_torch.launch.mesh import pod_split
 from repro_torch.models.common import NO_TP, ParallelCtx
 from repro_torch.models.transformer import (Transformer, flat_size,
                                             leaf_shapes, loss_fn)
+from repro_torch.obs.trace import BACKWARD_SPAN, scope
+from repro_torch.optim.base import LAYOUTS  # noqa: F401  (the reference's)
 from repro_torch.optim.base import (SegmentInfo, TwoStageOptimizer,
                                     get_optimizer, segments_of)
 from repro_torch.optim.compressors import from_config
 from repro_torch.plan.executor import group_of
-from repro_torch.state.slots import StateTree
+from repro_torch.state.slots import StateLayout, StateTree
 
 STAGES = ("warmup", "compressed")
 TOPOLOGIES = ("flat", "hier")
@@ -99,6 +108,28 @@ def segment_info(cfg: ArchConfig, d_pad: int, tp: int = 1) -> SegmentInfo:
     padding tail as its own segment."""
     return segments_of([math.prod(s) for _, s in leaf_shapes(cfg, tp)],
                        d_pad)
+
+
+def mesh_axes(mesh):
+    """(dp_axes, dp_sizes, tp) of a built ``launch.mesh.DpMesh``."""
+    return tuple(mesh.axes), tuple(mesh.sizes), mesh.tp
+
+
+def state_layout_ctx(cfg: ArchConfig, mesh, block: int = 4096,
+                     topology: str = "flat") -> StateLayout:
+    """The :class:`~repro_torch.state.slots.StateLayout` of a training run
+    on ``mesh`` (a ``DpMesh``): the padded flat length, the dp, server
+    and pod group sizes and the segment count, as :func:`init_train_state`
+    and the checkpoints size the state (``hier`` serves within the pod)."""
+    dp_axes, dp_sizes, tp = mesh_axes(mesh)
+    n_dp = math.prod(dp_sizes)
+    d_pad = flat_dim(cfg, n_dp, block, tp)
+    n_srv, n_outer = n_dp, 1
+    if topology == "hier" and len(dp_axes) > 1:
+        _, _, n_srv, n_outer = pod_split(dp_axes, dp_sizes)
+    return StateLayout(d=d_pad, n_dp=n_dp, n_srv=n_srv, n_outer=n_outer,
+                       n_segments=segment_info(cfg, d_pad, tp).n,
+                       dp_sizes=dp_sizes, tp=tp)
 
 
 @dataclasses.dataclass
@@ -298,7 +329,8 @@ def _grads(ts: TrainState, batch: Dict[str, torch.Tensor],
         if last:
             overlap.arm()
         try:
-            tot.backward()      # accumulates into the views of ts.g
+            with scope(BACKWARD_SPAN):
+                tot.backward()  # accumulates into the views of ts.g
         finally:
             if last:
                 overlap.remove_hooks()
@@ -314,6 +346,54 @@ def _grads(ts: TrainState, batch: Dict[str, torch.Tensor],
         with torch.no_grad():
             ts.g.div_(a)
     return total / a, {k: v / a for k, v in metrics.items()}
+
+
+def flat_grad_parts(grads, sizes: Sequence[int], d_pad: int) -> tuple:
+    """Per-bucket f32 gradient parts, the backward-overlap front end of
+    the reference: ``grads`` (a ``{path: tensor}`` dict, taken in ravel
+    order, or a sequence of leaves in ravel order) cut at the bucket
+    ``sizes`` (summing to ``d_pad``).  Each part is the concatenation of
+    the raveled leaf fragments its element range covers, then zeros for
+    the padding tail, so that ``torch.cat(parts)`` is bitwise the padded
+    ravel and part ``b`` reads only the leaves it overlaps."""
+    if isinstance(grads, dict):
+        grads = [grads[p] for p, _ in ravel_shapes(grads)]
+    leaves = [g.reshape(-1).to(torch.float32) for g in grads]
+    d_r = sum(g.shape[0] for g in leaves)
+    if sum(sizes) != d_pad or d_pad < d_r:
+        raise ValueError(f"bucket sizes {tuple(sizes)} do not cover "
+                         f"d_pad {d_pad} >= {d_r} gradient elements")
+    parts, lo = [], 0
+    for sz in sizes:
+        hi, frags, a = lo + sz, [], 0
+        for g in leaves:
+            b = a + g.shape[0]
+            if min(hi, b) > max(lo, a):
+                frags.append(g[max(lo, a) - a:min(hi, b) - a])
+            a = b
+        n_pad = hi - max(lo, d_r)
+        if n_pad > 0:
+            frags.append(leaves[0].new_zeros(min(n_pad, sz)))
+        parts.append(frags[0] if len(frags) == 1 else torch.cat(frags))
+        lo = hi
+    return tuple(parts)
+
+
+def flat_grads(ts: TrainState, batch: Dict[str, torch.Tensor],
+               accum_steps: int = 1, aux_weight: float = 0.01,
+               bucket_sizes: Optional[Sequence[int]] = None):
+    """This rank's flat f32 training-loss gradient padded to ``d_pad``,
+    with its :class:`SegmentInfo` and the ``(total, metrics)`` aux: the
+    front half of :func:`train_step` (the same forward, backward and
+    accumulation), as the reference's ``flat_grads``.  The gradient is
+    ``ts.g`` itself, which the next step overwrites.  With
+    ``bucket_sizes`` the first value is the tuple of per-bucket parts
+    (views of ``ts.g``, bitwise :func:`flat_grad_parts`' of the
+    leaves)."""
+    total, metrics = _grads(ts, batch, accum_steps, None, aux_weight)
+    g = ts.g if bucket_sizes is None else \
+        tuple(ts.g.split(list(bucket_sizes)))
+    return g, ts.segs, total, metrics
 
 
 def overlap_applies(stage: str, sync: bool, n_buckets: int,

@@ -926,6 +926,111 @@ def test_nccl_overlap_check_and_comm_volume_harness(card, tmp_path):
     assert big["collectives"] > 0 and big["overlapped"] > 0
 
 
+# full-width BERT-Large, 2 x 2 dp, 2 buckets with backward overlap; the
+# profile holds the last 2 steps, compressed ones only
+OVERLAP_BWD_RUN = dict(arch="bert-large", mesh="2x2x1", pipeline="2",
+                       overlap_bwd="on", batch=16, seq=128, block_size=4096,
+                       steps=5, warmup_steps=3, profile_steps=2)
+
+
+def test_nccl_overlap_check_bwd(card, tmp_path):
+    """``overlap_check --bwd`` over NCCL on four cards.  (a) ``run_bwd``
+    at the reference's micro sizes (4 layers of width 64, 2 buckets,
+    block 512, one rank a card): NCCL kernels found, and at least one
+    issued between backward matmuls (``run_bwd`` raises otherwise).
+    (b) full BERT-Large through ``launch.train.run`` on a 2 x 2 dp mesh,
+    2 buckets, backward overlap, bf16, batch 16 x 128, 3 warmup steps
+    then 2 compressed ones under ``--profile`` (one rank a card, spawned):
+    on every rank ``check_bwd_trace(load_profile_dir(prof, rank))`` finds
+    the first stage's all_to_all of at least one bucket issued between
+    backward matmuls, and each rank launches ``adam_step`` once a warmup
+    step and ``ef_compress`` / ``decompress`` twice a bucket and
+    compressed step.  Prints, for each rank, ``pairs``,
+    ``overlapped_bwd``, the NCCL µs under backward matmuls beside the
+    NCCL µs in all, and ``stage0_in_bwd`` beside the count the cost
+    model's ready times price."""
+    import json
+    import subprocess
+    import torch.multiprocessing as mp
+    import _torch_overlap_bwd_worker as worker
+    from repro_torch.benchmarks.overlap_check import (check_bwd_trace,
+                                                      run_bwd)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import plan_ready_times
+    from repro_torch.obs.profile import load_profile_dir
+    from repro_torch.perf.device import get_device
+    _four_cards()
+    card_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().replace("\n", " | ")
+    print(f"[nccl4] cards: {card_line}")
+
+    def summary(r):
+        return {k: r[k] for k in ("pairs", "overlapped_bwd", "n_dots",
+                                  "issued", "device_overlapped")} | {
+            "nccl_us": round(r["nccl_us"], 1),
+            "nccl_under_dots_us": round(r["nccl_under_dots_us"], 1)}
+
+    a = run_bwd((4,), block=512, n_buckets=2)
+    assert a["pairs"] > 0 and a["overlapped_bwd"] > 0
+    print("[nccl4] overlap_bwd micro: " + json.dumps(
+        {"total": summary(a), "ranks": [summary(r) for r in a["ranks"]],
+         "kernels": [[x["rank"], x["kind"], x["index"], x["dots_before"],
+                      x["dots_after"], round(x["us"], 1),
+                      round(x["under_dots_us"], 1), x["device_dots_after"]]
+                     for x in a["details"]]}))
+    mp.start_processes(worker.train_main,
+                       args=(4, str(tmp_path), OVERLAP_BWD_RUN), nprocs=4,
+                       start_method="spawn")
+    run = OVERLAP_BWD_RUN
+    warm, comp = run["warmup_steps"], run["steps"] - run["warmup_steps"]
+    cfg = get_config(run["arch"])
+    rows = []
+    for r in range(4):
+        with open(tmp_path / f"train{r}.json") as f:
+            res = json.load(f)
+        nb = res["n_buckets"]
+        want = {"adam_step": warm, "ef_compress": 2 * nb * comp,
+                "decompress": 2 * nb * comp}
+        assert {k: res["launches"][k] for k in want} == want, (r, res)
+        ready, _ = plan_ready_times(cfg, res["d_pad"], 4, run["block_size"],
+                                    nb, get_device("h100-sxm"),
+                                    run["batch"], run["seq"])
+        priced = sum(t < max(ready) for t in ready)
+        events = load_profile_dir(str(tmp_path / "prof"), r)
+        b = check_bwd_trace(events)
+        if r == 0:
+            cats = {}
+            for e in events:
+                cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+            nccl = [e for e in events if e.get("cat") == "kernel"
+                    and "nccl" in str(e.get("name", "")).lower()][:1]
+            print("[nccl4] overlap_bwd trace of rank 0: categories "
+                  + json.dumps(cats) + "; an NCCL kernel "
+                  + json.dumps(nccl, default=str)[:600])
+        a2a = [x for x in b["details"] if x["kind"] == "all-to-all"]
+        rows.append(dict(summary(b), rank=r,
+                         backward_passes=b["backward_passes"],
+                         all_to_all_overlapped=sum(x["overlapped_bwd"]
+                                                   for x in a2a),
+                         streams=b["streams"],
+                         stage0_in_bwd=[h["stage0_in_bwd"]
+                                        for h in res["history"][warm:]],
+                         priced=priced,
+                         step_ms=[round(h["ms"], 1) for h in res["history"]
+                                  if h.get("ms") is not None],
+                         kernels=[[x["kind"], x["index"], x["dots_before"],
+                                   x["dots_after"], round(x["us"], 1),
+                                   round(x["under_dots_us"], 1),
+                                   x["device_dots_after"]]
+                                  for x in b["details"]]))
+    print("[nccl4] overlap_bwd bert-large: " + json.dumps(rows))
+    for row in rows:
+        assert row["backward_passes"] == comp, row["rank"]
+        assert row["all_to_all_overlapped"] >= 1, row
+
+
 # --------------------------------------------------------------------------
 # tensor, sequence and expert parallelism over NCCL (four cards)
 # --------------------------------------------------------------------------
