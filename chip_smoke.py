@@ -294,6 +294,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                reports the matmul kernels its trace finds through their
                correlation ids.  Prints the
                ``{"overlap_bwd": {...}}`` line.
+ 21. remat-dots — full BERT-Large with ``remat_policy="dots"`` (the
+               superblock recompute keeps the outputs of the products
+               without batch dimensions) through ``launch.train.run`` at
+               phase 5's parameters, in a spawned process (its profiler
+               sessions the first in that process), run right after phase
+               6: the launch counts set to 0 just before and read just
+               after (phase 5's), the losses and the final flat x bitwise
+               phase 5's (x by its SHA-256); then one warmup and one
+               compressed step profiled as in phase 6.  Its step ms, peak
+               and matmul device ms and kernels are printed beside phase
+               5's and phase 6's, in the ``{"remat_dots": {...}}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
@@ -301,13 +312,14 @@ phases 9 and 9b, each oracle update in phase 11, each claim benchmark in
 phase 12, the sweep and the auto run in phase 13, the observed run in
 phase 14a, each card run of phase 15a and the full-width run of 15b, each
 card run of phase 16a and the generate calls of 16b and 16c, each harness
-entry of 17b, each run of 17c, the prefill of 19b and the micro's 1-bit
-run of phase 20) and read just after it.  It prints the
-``{"kernels": [...]}`` line, the card line, and as its last line
-``{"ok": true, "device": {...}}``.
+entry of 17b, each run of 17c, the prefill of 19b, the micro's 1-bit
+run of phase 20 and the "dots" run of phase 21) and read just after it.
+It prints the ``{"kernels": [...]}`` line, the card line, and as its
+last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -340,6 +352,8 @@ SMALL_LOSS_RTOL = 1e-3
 EXPECTED_LAUNCHES = {"adam_step": 3, "ef_compress": 6, "decompress": 6,
                      "flash_attention": 0, "flash_attention_wgmma": 0,
                      "flash_attention_wide": 0}
+# phase 21: the main path's model with the selective recompute
+DOTS_ARCH = "bert-large-dots"
 # block sizes beside the main path's 4096 that ef_compress must take
 # (multiples of 8 that are not multiples of 32, and one that is)
 SMALL_BLOCKS = (8, 24, 40, 520)
@@ -1221,12 +1235,13 @@ def _device_breakdown(prof, wall_ms: float) -> dict:
     share of ``wall_ms``, from one torch.profiler trace."""
     from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name, by_group = {}, {}
+    by_name, by_group, n_group = {}, {}, {}
     for e in kernels:
         ms = e.time_range.elapsed_us() / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
         g = _kernel_group(e.name)
         by_group[g] = by_group.get(g, 0.0) + ms
+        n_group[g] = n_group.get(g, 0) + 1
     busy = sum(by_group.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     dtod = sum(ms for n, ms in by_name.items()
@@ -1234,6 +1249,7 @@ def _device_breakdown(prof, wall_ms: float) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if busy else None,
             "n_kernels": len(kernels), "by_group_ms": by_group,
+            "by_group_kernels": n_group,
             "memcpy_dtod_ms": dtod,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
@@ -3547,6 +3563,119 @@ def phase_overlap_bwd() -> dict:
     return out
 
 
+def _x_sha256(x: torch.Tensor) -> str:
+    return hashlib.sha256(x.detach().cpu().contiguous().numpy().data
+                          ).hexdigest()
+
+
+def _remat_dots_child(out_path: str) -> None:
+    """Phase 21's run, in a process of its own (see ``phase_remat_dots``)."""
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    register(dataclasses.replace(get_config(MAIN["arch"]), name=DOTS_ARCH,
+                                 remat_policy="dots"))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(device="cuda", **dict(MAIN, arch=DOTS_ARCH))
+    counts = build.launch_counts()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist, state = res["history"], res["state"]
+    w = MAIN["warmup_steps"]
+    out = {"launches": counts, "run_s": run_s, "peak_bytes": peak,
+           "losses": [h["loss"] for h in hist],
+           "stages": [h["stage"] for h in hist],
+           "warmup_step_ms": [h["ms"] for h in hist[:w]],
+           "compressed_step_ms": [h["ms"] for h in hist[w:]],
+           "x_sha256": _x_sha256(state.x)}
+    out["fwd_bwd_ms"] = _fwd_bwd_in_turns(state.x)
+    out["profile"] = phase_profile(state)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _fwd_bwd_in_turns(x: torch.Tensor) -> dict:
+    """Host ms of one forward and backward pass of the main path's model
+    over ``x``, under "block" and "dots" in turns (block, dots, dots,
+    block), each ended by a synchronise: the two policies in one
+    process."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models.transformer import Transformer, loss_fn
+    base = get_config(MAIN["arch"])
+    batch = SyntheticStream(
+        base, InputShape("turns", MAIN["seq"], MAIN["batch"], "train"),
+        seed=2, device="cuda").batch_at(0)
+    g = torch.zeros_like(x)
+    out = {"block": [], "dots": []}
+    for pol in ("block", "dots", "dots", "block"):
+        model = Transformer(dataclasses.replace(base, remat_policy=pol), x)
+        model.bind_grads(g)
+        g.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_fn(model, batch)[0].backward()
+        torch.cuda.synchronize()
+        out[pol].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_remat_dots(stats: dict, main_x_sha: str) -> dict:
+    """Phase 21: phase 5's run under ``remat_policy="dots"`` in a spawned
+    process, held bitwise to phase 5 and printed beside phases 5 and 6
+    (see the module docstring)."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    path = os.path.join(tempfile.mkdtemp(), "remat_dots.json")
+    torch.cuda.empty_cache()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_remat_dots_child, args=(path,))
+    proc.start()
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"[remat-dots] the run's process exited "
+                             f"{proc.exitcode}")
+    with open(path) as f:
+        out = json.load(f)
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    if out["launches"] != EXPECTED_LAUNCHES:
+        raise AssertionError(f"[remat-dots] launch counts "
+                             f"{out['launches']}, expected "
+                             f"{EXPECTED_LAUNCHES}")
+    if out["losses"] != stats["losses"]:
+        raise AssertionError(f"[remat-dots] losses {out['losses']} are not "
+                             f"phase 5's {stats['losses']}")
+    out["x_bitwise_main"] = out["x_sha256"] == main_x_sha
+    if not out["x_bitwise_main"]:
+        raise AssertionError("[remat-dots] the final x is not phase 5's")
+    mm = "matmul (cuBLAS)"
+    for tag, r in (("phase 5/6 block", stats), ("phase 21 dots", out)):
+        comp = r["profile"]["compressed"]
+        log(f"[remat-dots] {tag}: warmup step ms {r['warmup_step_ms']}, "
+            f"compressed step ms {r['compressed_step_ms']}, peak "
+            f"{r['peak_bytes']} bytes; profiled compressed step: matmul "
+            f"{comp['by_group_ms'].get(mm, 0.0):.3f} device ms over "
+            f"{comp['by_group_kernels'].get(mm, 0)} kernels, "
+            f"{comp['n_kernels']} kernels, busy "
+            f"{comp['device_busy_ms']:.1f} of {comp['wall_ms']:.1f} ms")
+    log(f"[remat-dots] one forward and backward pass in turns in phase "
+        f"21's process, host ms: block {out['fwd_bwd_ms']['block']}, dots "
+        f"{out['fwd_bwd_ms']['dots']}")
+    counts = {k: out["launches"][k]
+              for k in ("adam_step", "ef_compress", "decompress")}
+    log(f"[remat-dots] losses and final x bitwise phase 5's, launches "
+        f"{counts}; phase 21 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3572,6 +3701,7 @@ def main() -> int:
     stats["profile"] = phase_profile(state)
     del state
     torch.cuda.empty_cache()
+    remat_dots = phase_remat_dots(stats, _x_sha256(main_state["x"]))
     phase_family_small()
     family = phase_family(stats["losses"])
     torch.cuda.empty_cache()
@@ -3639,6 +3769,7 @@ def main() -> int:
             serve_families["mixtral"]["launches"][e["name"]]
         e["launches_overlap_bwd"] = \
             overlap_bwd["backward"]["launches"][e["name"]]
+        e["launches_remat_dots"] = remat_dots["launches"][e["name"]]
         e["launches_vision"] = dict(
             {k: c["launches"][e["name"]]
              for k, c in vision["claims"].items()},
@@ -3660,6 +3791,7 @@ def main() -> int:
     print(json.dumps({"tp": tp}))
     print(json.dumps({"tp_serve": tp_serve}))
     print(json.dumps({"overlap_bwd": overlap_bwd}))
+    print(json.dumps({"remat_dots": remat_dots}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

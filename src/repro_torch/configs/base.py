@@ -75,6 +75,11 @@ class ArchConfig:
     norm_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
     remat: bool = True             # activation-checkpoint each block
+    # "block": recompute everything inside the block on backward (min mem)
+    # "dots":  the reference's dots_with_no_batch_dims_saveable — matmul
+    #          outputs without batch dims are saved, everything else
+    #          recomputed (trades memory for ~25% fewer backward FLOPs)
+    remat_policy: str = "block"
     attn_chunk: int = 2048         # KV chunk of the reference's online softmax
     # "full" (plain masked softmax), "pallas" (the flash-attention kernel,
     # forward only), "chunked" (online softmax over KV chunks), "auto"

@@ -250,6 +250,10 @@ def lower_one(arch: str, shape_name: Union[str, InputShape],
         "n_chips": math.prod(dp_sizes) * tp,
         "trace_s": round(time.time() - t0, 1),
         "roofline": rep.summary(),
+        # the traced FLOPs by op: aten.mm / aten.addmm are the products
+        # without batch dimensions, aten.bmm the batched ones
+        "flops_by_op": {str(op): int(n) for op, n in
+                        counter.flops.get_flop_counts()["Global"].items()},
         "memory": {"peak_bytes": peak, "arg_bytes": arg,
                    "temp_bytes": rep.temp_bytes},
         "fits_hbm": bool(peak <= HBM_BYTES),

@@ -546,7 +546,7 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
         profile: Optional[str] = None, profile_steps: int = 4,
         memory: str = "off", audit: str = "off", audit_every: int = 10,
         drift_probe: bool = False, bench: Optional[str] = None,
-        seq_parallel: bool = False) -> dict:
+        seq_parallel: bool = False, auto_warmup: bool = False) -> dict:
     """Train until step ``steps``; returns ``{"history", "launches", "d",
     "d_pad", "state", "optimizer", "layout", "start_step",
     "checkpoint_s", "topology", "n_buckets", "overlap_bwd", "plan",
@@ -555,12 +555,12 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     name; ``schedule``: the tuner's pick, a ``plan.tune.Candidate``, when
     an axis was ``auto``, else None).
 
-    ``warmup_steps`` is the manual T_w; ``None`` (or an ``auto`` recipe)
-    selects the paper's Sec. 7.1 variance-ratio rule, as in the
-    reference driver.  ``batch`` is the global batch, split over the dp
-    ranks of an initialised process group (the model ranks of one dp rank
-    take the same rows).  ``mesh`` (default: one dp axis over the process
-    group) is a ``--mesh`` spelling; ``seq_parallel`` runs a model axis
+    ``warmup_steps`` is the manual T_w; ``None``, ``auto_warmup`` or an
+    ``auto`` recipe selects the paper's Sec. 7.1 variance-ratio rule, as
+    in the reference's ``run``.  ``batch`` is the global batch, split over
+    the dp ranks of an initialised process group (the model ranks of one
+    dp rank take the same rows).  ``mesh`` (default: one dp axis over the
+    process group) is a ``--mesh`` spelling; ``seq_parallel`` runs a model axis
     above 1 with Megatron sequence parallelism; ``topology``
     and ``pipeline`` default to the recipe's (``"flat"`` and ``"off"``
     but for the auto recipes).  ``auto`` values are resolved by the plan
@@ -694,7 +694,8 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     stream = SyntheticStream(cfg, InputShape("custom", seq, batch, "train"),
                              seed=seed, shard=dp_rank, n_shards=n_dp,
                              device=dev)
-    manual = warmup_steps is not None and spec.switch_mode == "steps"
+    manual = warmup_steps is not None and not auto_warmup \
+        and spec.switch_mode != "auto"
     switch = WarmupSwitch(
         mode="steps" if manual else "auto",
         warmup_steps=warmup_steps if warmup_steps is not None else 0,
@@ -1010,6 +1011,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--warmup-steps", type=int, default=None,
                     help="manual T_w (compressed from this step on)")
+    ap.add_argument("--auto-warmup", action="store_true",
+                    help="the variance-ratio rule picks T_w, even with "
+                         "--warmup-steps")
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split over the dp ranks")
     ap.add_argument("--seq", type=int, default=128)
@@ -1109,7 +1113,7 @@ def main(argv=None):
             profile=args.profile, profile_steps=args.profile_steps,
             memory=args.memory, audit=args.audit,
             audit_every=args.audit_every, drift_probe=args.drift_probe,
-            bench=args.bench)
+            bench=args.bench, auto_warmup=args.auto_warmup)
     finally:
         if world > 1:
             dist.destroy_process_group()

@@ -34,6 +34,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import CheckpointPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +271,25 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the result is rounded to x's dtype, as the reference's
     ``preferred_element_type=f32`` einsum followed by the cast."""
     return torch.matmul(x, w.to(x.dtype))
+
+
+# The products whose outputs ``remat_policy="dots"`` keeps: a 2-D product
+# has no batch dimension (``dense`` folds (..., d) @ (d, f) into one ``mm``,
+# as do the router and the MoE's one-hot dispatch and combine), while the
+# attention products and the SSM's contraction are ``bmm``s over batch
+# dimensions and are recomputed, as in the reference.
+SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default})
+
+
+def save_dots(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat_policy="dots"`` (the
+    reference's ``dots_with_no_batch_dims_saveable``): keep the output of
+    every product without batch dimensions, recompute everything else,
+    the collectives included."""
+    if func in SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def init_linear(generator: torch.Generator, d_in: int, d_out: int,

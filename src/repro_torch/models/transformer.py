@@ -37,7 +37,9 @@ model.  :meth:`Transformer.bind_grads` points every parameter's ``.grad``
 at the matching view of a flat gradient buffer, into which autograd then
 accumulates in place: the backward pass writes the flat gradient
 directly.  With ``cfg.remat`` each superblock is recomputed in backward,
-as the reference's ``jax.checkpoint`` of its scan body.
+as the reference's ``jax.checkpoint`` of its scan body; with
+``remat_policy="dots"`` the recompute keeps the outputs of the products
+without batch dimensions (``models.common.save_dots``).
 
 The serving functions take the params as the dict from dotted path to
 tensor (``init_params``, ``convert.params_from_jax``) with the layers
@@ -64,7 +66,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import shard_leaf
@@ -72,8 +75,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import attn_forward
-from repro_torch.models.common import (NO_TP, ParallelCtx, dense, f_reduce,
-                                       g_copy, rep_param, rms_norm,
+from repro_torch.models.common import (NO_TP, ParallelCtx, dense,
+                                       f_reduce, g_copy, rep_param,
+                                       rms_norm, save_dots,
                                        sp_gather, sp_scatter, sp_slice,
                                        tp_rank)
 from repro_torch.models.mlp import mlp_forward, moe_forward
@@ -486,8 +490,15 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     aux = None
     for sb in model.superblocks():
         fn = functools.partial(_superblock, sb)
-        h, a = checkpoint(fn, h, use_reentrant=False) if cfg.remat \
-            else fn(h)
+        if not cfg.remat:
+            h, a = fn(h)
+        elif cfg.remat_policy == "dots":
+            h, a = checkpoint(fn, h, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts,
+                                  save_dots))
+        else:
+            h, a = checkpoint(fn, h, use_reentrant=False)
         if a is not None:
             aux = a if aux is None else aux + a
     h = rms_norm(h, rep_param(model.norm_f, ctx), cfg.norm_eps)

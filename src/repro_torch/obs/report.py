@@ -509,15 +509,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="schema-check every record before summarizing")
     ap.add_argument("--json", metavar="PATH", default=None,
                     help="also write the summary dict as JSON")
+    ap.add_argument("--diff", metavar="OTHER", default=None,
+                    help="the second log, as the positional LOG_B (the "
+                         "reference's spelling)")
     args = ap.parse_args(argv)
+    if args.log_b and args.diff:
+        ap.error("give the second log once: LOG_B or --diff OTHER")
+    other_log = args.log_b or args.diff
     records = load(args.log, validate=args.validate)
     if args.validate:
         print(f"validated {len(records)} records OK")
     summary = summarize(records)
-    if args.log_b:
-        other = summarize(load(args.log_b, validate=args.validate))
+    if other_log:
+        other = summarize(load(other_log, validate=args.validate))
         print(format_diff(summary, other, label_a=args.log,
-                          label_b=args.log_b))
+                          label_b=other_log))
         return 0
     print(format_report(summary))
     if args.json:

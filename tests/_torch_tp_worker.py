@@ -222,6 +222,26 @@ def _busy_ms(prof) -> tuple:
     return busy / 1e3, len(iv)
 
 
+def _matmul_nccl_ms(prof) -> dict:
+    """Device ms of the cuBLAS matmul kernels and of the NCCL kernels in
+    one torch.profiler trace, with their counts (kernels told apart by
+    name, as chip_smoke.py's groups)."""
+    from torch.autograd import DeviceType
+    out = {"matmul_ms": 0.0, "matmul_kernels": 0, "nccl_ms": 0.0,
+           "nccl_kernels": 0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        kind = "nccl" if "nccl" in low else "matmul" if any(
+            k in low for k in ("gemm", "xmma", "cutlass", "sm90_",
+                               "nvjet")) else None
+        if kind:
+            out[f"{kind}_ms"] += e.time_range.elapsed_us() / 1e3
+            out[f"{kind}_kernels"] += 1
+    return out
+
+
 def _routes(T, calls):
     """A spy on ``models.transformer.moe_forward`` recording each call's
     top-k expert choices."""
@@ -412,7 +432,7 @@ def card_main(rank: int, world: int, workdir: str, backend="nccl") -> None:
             busy, n_k = _busy_ms(prof)
             out["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
                               "idle_share": 1.0 - busy / wall,
-                              "n_kernels": n_k}
+                              "n_kernels": n_k, **_matmul_nccl_ms(prof)}
         with open(os.path.join(workdir, f"card_r{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:

@@ -97,6 +97,50 @@ EXEMPT = {
         "the kept contract: the tuner's kernel axis has one value (a CUDA "
         "tensor always takes the port's kernel)",
 }
+_KERNELS = ("the kept contract: a CUDA tensor always takes the port's "
+            "kernel, a CPU tensor its plain version; there is no switch")
+_DEVICE = ("the port runs on the card unless the caller asks for the CPU "
+           "(--device cuda|cpu); the reference's platform is JAX's")
+# every keyword, dataclass field and command-line flag of src/repro/ the
+# port's file of the same path lacks (``file::Class.field``,
+# ``file::func(keyword)``, ``file::--flag``), and why
+EXEMPT_ARGS = {
+    "configs/base.py::OptimSpec.use_kernel": _KERNELS,
+    "launch/train.py::run(kernels)": _KERNELS,
+    "launch/train.py::--kernels": _KERNELS,
+    "launch/train.py::run(base_lr)":
+        "named lr, as the CLI's --lr that sets it in both packages",
+    "launch/train.py::run(mesh_shape)":
+        "named mesh: a --mesh spelling (N, NxT, PxNxT) resolved over the "
+        "process group, where the reference takes a JAX mesh shape",
+}
+# every keyword and flag the port adds to a file of the reference, and why
+ADDED_ARGS = {
+    "launch/train.py::run(lr)": "the reference's base_lr",
+    "launch/train.py::run(mesh)": "the reference's mesh_shape",
+    "launch/train.py::run(verbose)":
+        "the per-step log on or off (tests and chip_smoke.py run quiet)",
+    "launch/train.py::run(device_spec)":
+        "the device the plan tuner prices, as the CLI's --device-spec",
+    "launch/train.py::run(seq_parallel)":
+        "Megatron sequence parallelism on the model axis; the reference's "
+        "run reads it from its mesh context",
+    "launch/train.py::--device-spec":
+        "a preset or measured:<kernel_sweep.json> for the plan tuner (the "
+        "reference prices its own TPU by --device)",
+    "obs/report.py::log_b": "the second log as a positional, beside --diff",
+    "benchmarks/comm_volume.py::--d":
+        "the flat length of --check-plans (small on the CPU)",
+    "benchmarks/comm_volume.py::--block":
+        "the block size of --check-plans (small on the CPU)",
+    "benchmarks/state_manifest.py::--tp":
+        "the model-axis degree of the manifest's mesh",
+}
+for _f in ("benchmarks/comm_sweep.py", "benchmarks/comm_volume.py",
+           "benchmarks/kernel_sweep.py", "benchmarks/overlap_check.py",
+           "benchmarks/run.py", "benchmarks/variance_stability.py",
+           "examples/serve_decode.py", "examples/train_e2e.py"):
+    ADDED_ARGS[f"{_f}::--device"] = _DEVICE
 
 
 # --------------------------------------------------------------------------
@@ -153,6 +197,101 @@ def test_exemptions_are_roadmaps_no_counterpart_list():
     end = re.compile(r"^\*\*|^#", re.M).search(text, start + 2).start()
     listed = set(re.findall(r"`([\w/]+\.py::\w+)`", text[start:end]))
     assert listed == set(EXEMPT)
+
+
+def _fields(path, cls):
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            return {n.target.id for n in node.body
+                    if isinstance(n, ast.AnnAssign)}
+    raise KeyError(cls)
+
+
+def _keywords(path, fn):
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.FunctionDef) and node.name == fn:
+            a = node.args
+            return {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs}
+    raise KeyError(fn)
+
+
+def _flags(path):
+    """Every string given to an ``add_argument`` call in ``path``."""
+    out = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Call) and \
+                getattr(node.func, "attr", None) == "add_argument":
+            out |= {a.value for a in node.args
+                    if isinstance(a, ast.Constant)
+                    and isinstance(a.value, str)}
+    return out
+
+
+def _cli_files():
+    """(reference file, port file, name): every file of src/repro/ and of
+    the top-level benchmarks/ and examples/ with an ``add_argument``;
+    the latter two map to src/repro_torch/benchmarks/ and /examples/."""
+    top = os.path.join(HERE, "..")
+    out = []
+    for root, _, files in os.walk(REF):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REF)
+                out.append((os.path.join(root, f), os.path.join(PORT, rel),
+                            rel.replace(os.sep, "/")))
+    for sub in ("benchmarks", "examples"):
+        for f in sorted(os.listdir(os.path.join(top, sub))):
+            if f.endswith(".py"):
+                out.append((os.path.join(top, sub, f),
+                            os.path.join(PORT, sub, f), f"{sub}/{f}"))
+    return [c for c in out if _flags(c[0])]
+
+
+def _arg_differences():
+    """(missing, added): ``file::...`` of every dataclass field, ``run``
+    keyword and CLI flag the reference has and the port lacks, and of
+    every one the port adds."""
+    missing, added = set(), set()
+    base = "configs/base.py"
+    for cls in ("ArchConfig", "OptimSpec", "InputShape"):
+        ref, port = _fields(os.path.join(REF, base), cls), \
+            _fields(os.path.join(PORT, base), cls)
+        missing |= {f"{base}::{cls}.{n}" for n in ref - port}
+        added |= {f"{base}::{cls}.{n}" for n in port - ref}
+    train = "launch/train.py"
+    ref, port = _keywords(os.path.join(REF, train), "run"), \
+        _keywords(os.path.join(PORT, train), "run")
+    missing |= {f"{train}::run({n})" for n in ref - port}
+    added |= {f"{train}::run({n})" for n in port - ref}
+    for ref_path, port_path, name in _cli_files():
+        assert os.path.exists(port_path), f"no port of {name}"
+        ref, port = _flags(ref_path), _flags(port_path)
+        missing |= {f"{name}::{n}" for n in ref - port}
+        added |= {f"{name}::{n}" for n in port - ref}
+    return missing, added
+
+
+def test_config_fields_run_keywords_and_cli_flags():
+    missing, added = _arg_differences()
+    assert missing == set(EXEMPT_ARGS), "missing in the port, exempt nowhere"
+    assert added == set(ADDED_ARGS), "added by the port, explained nowhere"
+    assert all(len(why) > 10 for why in EXEMPT_ARGS.values())
+    assert all(len(why) > 10 for why in ADDED_ARGS.values())
+    assert "configs/base.py::ArchConfig.remat_policy" not in missing
+    assert len(_cli_files()) >= 14
+
+
+def test_exempt_arguments_are_roadmaps_lists():
+    text = open(ROADMAP).read()
+    pattern = re.compile(r"`([\w/]+\.py::(?:[\w.]+\(\w+\)|--[\w-]+|"
+                         r"\w+\.\w+|\w+))`")
+
+    def listed(head):
+        start = text.index(head)
+        end = re.compile(r"^\*\*|^#", re.M).search(text, start + 2).start()
+        return set(pattern.findall(text[start:end]))
+    assert listed("**No counterpart**") == set(EXEMPT) | set(EXEMPT_ARGS)
+    assert listed("**Added by the port**") == set(ADDED_ARGS)
 
 
 # --------------------------------------------------------------------------
@@ -385,3 +524,66 @@ def test_find_trace_files_and_load_profile_dir(tmp_path):
     res = check_bwd_trace(events)
     # gloo on the CPU: no collective kernel; one backward range a step
     assert res["pairs"] == 0 and res["backward_passes"] == 2
+
+
+# --------------------------------------------------------------------------
+# the last keyword and CLI gaps: auto_warmup, --auto-warmup, report --diff
+# --------------------------------------------------------------------------
+
+def _stages(**kw):
+    from repro_torch.launch.train import run
+    res = run(arch="bert-base-smoke", recipe="fast_variance", device="cpu",
+              steps=8, batch=4, seq=32, block_size=512, lr_warmup=2,
+              verbose=False, **kw)
+    return [h["stage"] for h in res["history"]]
+
+
+def test_auto_warmup_lets_the_variance_rule_pick(monkeypatch):
+    """``auto_warmup=True`` with ``warmup_steps=6``: the stage flips where
+    the Sec. 7.1 rule flips it with no manual T_w, not at step 6 (b2 0.5:
+    the rule's window is 2 steps, so it fires within the run)."""
+    from repro_torch.configs import base
+    monkeypatch.setitem(base._OPTIM_RECIPES, "fast_variance",
+                        base.OptimSpec(name="fast_variance",
+                                       optimizer_kwargs={"b2": 0.5}))
+    auto = _stages()
+    flip = auto.index("compressed")
+    assert 0 < flip < 6
+    assert _stages(warmup_steps=6, auto_warmup=True) == auto
+    assert _stages(warmup_steps=6).index("compressed") == 6
+
+
+def test_auto_warmup_flag_reaches_run(monkeypatch):
+    from repro_torch.launch import train
+    seen = []
+    monkeypatch.setattr(train, "run", lambda **kw: seen.append(kw))
+    base = ["--device", "cpu", "--warmup-steps", "3"]
+    train.main(base)
+    train.main(base + ["--auto-warmup"])
+    assert [(k["warmup_steps"], k["auto_warmup"]) for k in seen] == \
+        [(3, False), (3, True)]
+
+
+def test_report_diff_flag(tmp_path, capsys):
+    """``obs.report A --diff B`` prints what ``obs.report A B`` prints, and
+    what the reference's ``repro.obs.report A --diff B`` prints."""
+    from repro.obs import report as JR
+    from repro_torch.launch.train import run
+    from repro_torch.obs import report as PR
+    logs = []
+    for i, steps in enumerate((3, 4)):
+        res = run(arch="bert-base-smoke", device="cpu", steps=steps,
+                  warmup_steps=2, batch=2, seq=16, block_size=512,
+                  verbose=False, telemetry=str(tmp_path / f"t{i}"))
+        logs.append(res["telemetry"])
+    capsys.readouterr()
+    out = []
+    for argv in ([logs[0], "--diff", logs[1]], [logs[0], logs[1]]):
+        assert PR.main(argv) == 0
+        out.append(capsys.readouterr().out)
+    assert JR.main([logs[0], "--diff", logs[1]]) == 0
+    ref = capsys.readouterr().out
+    assert out[0] == out[1] == ref
+    assert out[0].startswith("== diff:")
+    with pytest.raises(SystemExit):
+        PR.main([logs[0], logs[1], "--diff", logs[1]])

@@ -1069,6 +1069,11 @@ TP_PATHS = {
 }
 
 
+# path A with remat_policy="dots": the same steps, run beside path A
+TP_PATHS["A_dots"] = dict(TP_PATHS["A"], name="internlm2-1.8b-tp-dots",
+                          cfg={"remat_policy": "dots"})
+
+
 # path A with the dp exchange in two buckets issued from backward hooks
 # (beside the model group's collectives), and its serial twin
 TP_PATHS["A_overlap"] = dict(
@@ -1138,6 +1143,34 @@ def test_nccl_tp_path_a_internlm2(card, tmp_path):
         assert r["launches"]["ef_compress"] == 2 * 10
         assert r["launches"]["decompress"] == 2 * 10
         assert r["losses"][-1] < r["losses"][0]
+
+
+def test_nccl_tp_path_a_dots_beside_block(card, tmp_path):
+    """Path A twice, each in processes of their own (so each profile is
+    its process's first): whole-block recompute, then
+    ``remat_policy="dots"``.  Under "dots" the step-0 parity holds as in
+    path A, the launches are path A's, and step 0's loss is bitwise the
+    "block" run's on every rank; prints the step ms, peak a card, kernels
+    a step and idle share of both."""
+    import json
+    runs = {}
+    for which in ("A", "A_dots"):
+        (tmp_path / which).mkdir()
+        runs[which] = _tp_path(tmp_path / which, which)
+    side = {}
+    for which, ranks in runs.items():
+        side[which] = {
+            "losses": ranks[0]["losses"],
+            "step_ms": [r["step_ms"] for r in ranks],
+            "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+            "profile": [r.get("profile") for r in ranks],
+            "launches": ranks[0]["launches"]}
+    side["losses_bitwise"] = [a["losses"] == b["losses"] for a, b in
+                              zip(runs["A"], runs["A_dots"])]
+    print("[tp4] path A block vs dots: " + json.dumps(side))
+    for block, dots in zip(runs["A"], runs["A_dots"]):
+        assert dots["losses"][0] == block["losses"][0]
+        assert dots["launches"] == block["launches"]
 
 
 def test_nccl_tp_path_b_mixtral(card, tmp_path):

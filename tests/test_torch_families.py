@@ -63,8 +63,8 @@ NEW_ARCHS = ["deepseek-7b", "falcon-mamba-7b", "granite-34b",
              "internvl2-2b", "jamba-1.5-large-398b",
              "llama4-scout-17b-a16e", "mixtral-8x22b", "musicgen-large"]
 # fields of the reference's ArchConfig the port does not carry, with the
-# value every registered config holds (the port remats whole blocks)
-REFERENCE_ONLY = {"remat_policy": "block"}
+# value every registered config holds: none (the port carries remat_policy)
+REFERENCE_ONLY = {}
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 GRAD_ATOL_SHARE = 1e-5
