@@ -1,0 +1,7 @@
+"""peak_mem_gb: ``torch.cuda.max_memory_allocated`` over the window,
+after ``reset_peak_memory_stats`` at its start, on the fullest card, in
+GB (1e9 bytes)."""
+
+
+def read(run):
+    return run["peak_bytes"] / 1e9
