@@ -40,6 +40,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import build
+from repro_torch.obs.trace import COLLECTIVE_KINDS
 from repro_torch.perf.device import DEVICES, DeviceSpec, as_device
 
 H100 = DEVICES["h100-sxm"]
@@ -82,11 +83,7 @@ class ByteCounter(contextlib.AbstractContextManager):
     ``calls`` records each call as (function name, bytes), in order;
     ``by_kind`` sums them by the reference's HLO op names."""
 
-    KINDS = {"all_reduce": "all-reduce",
-             "all_gather_into_tensor": "all-gather",
-             "all_gather_single": "all-gather",
-             "reduce_scatter_tensor": "reduce-scatter",
-             "all_to_all_single": "all-to-all"}
+    KINDS = COLLECTIVE_KINDS
 
     def __init__(self):
         self.bytes = 0

@@ -31,12 +31,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
-from repro_torch.models.common import ParallelCtx
+from repro_torch.models.common import MODEL_AXIS, ParallelCtx
 from repro_torch.plan import executor as _exec
 
 FLAT_AXES = ("dp",)
 POD_AXES = ("pod", "data")
-MODEL_AXIS = "model"
 # the reference's production meshes: one pod of 16 dp x 16 model ranks,
 # and two such pods
 PRODUCTION_MESH = (16, 16)

@@ -709,8 +709,9 @@ def run(arch: str = "bert-base-smoke", recipe: str = "onebit_adam",
     sink = as_sink(telemetry, filename="telemetry.jsonl" if rank == 0
                    else f"telemetry_rank{rank}.jsonl")
     tracer = Tracer(sink)
-    # --profile needs the obs:: ranges even when --telemetry is off
-    set_tracing(sink.enabled or profile is not None)
+    # the obs:: ranges and the step's spans: only a profiler reads them,
+    # and each costs a dispatcher call a step while on
+    set_tracing(profile is not None)
     plans = (warm_plan, comp_plan)
     overlap_on = overlap and n_buckets > 1
     if sink.enabled:

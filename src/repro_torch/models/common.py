@@ -36,6 +36,13 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import CheckpointPolicy
 
+from repro_torch.obs.trace import count_collective
+
+# the mesh axis of tensor parallelism (``launch.mesh`` builds its group);
+# every collective here runs on it or on a kv-duplicate subgroup of it
+MODEL_AXIS = "model"
+_MODEL = (MODEL_AXIS,)
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
@@ -68,10 +75,12 @@ class ParallelCtx:
 NO_TP = ParallelCtx()
 
 
-def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+def _all_reduce(x: torch.Tensor, group, n: int, op=dist.ReduceOp.SUM
                 ) -> torch.Tensor:
-    """The all-reduce of a contiguous copy of ``x``."""
+    """The all-reduce of a contiguous copy of ``x`` over the ``n`` ranks
+    of ``group``."""
     y = x.clone(memory_format=torch.contiguous_format)
+    count_collective("all_reduce", y, _MODEL, n)
     dist.all_reduce(y, op=op, group=group)
     return y
 
@@ -80,6 +89,7 @@ def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    count_collective("all_gather_into_tensor", xt, _MODEL, n)
     dist.all_gather_into_tensor(out, xt, group=group)
     return out.movedim(0, dim)
 
@@ -91,40 +101,41 @@ def _scatter(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {n} ranks")
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    count_collective("reduce_scatter_tensor", xt, _MODEL, n)
     dist.reduce_scatter_tensor(out, xt, group=group)
     return out.movedim(0, dim)
 
 
 class _GCopy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, ct):
-        return _all_reduce(ct, ctx.group), None
+        return _all_reduce(ct, ctx.group, ctx.n), None, None
 
 
 class _FReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _all_reduce(x, group)
+    def forward(ctx, x, group, n):
+        return _all_reduce(x, group, n)
 
     @staticmethod
     def backward(ctx, ct):
-        return ct, None
+        return ct, None, None
 
 
 class _PMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
         ctx.group, ctx.n = group, n
-        return _all_reduce(x, group) / n
+        return _all_reduce(x, group, n) / n
 
     @staticmethod
     def backward(ctx, ct):
-        return _all_reduce(ct, ctx.group) / ctx.n, None, None
+        return _all_reduce(ct, ctx.group, ctx.n) / ctx.n, None, None
 
 
 class _SpGather(torch.autograd.Function):
@@ -153,14 +164,14 @@ def g_copy(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
     """Identity fwd; bwd sums the gradient over the model axis."""
     if ctx.tp == 1:
         return x
-    return _GCopy.apply(x, ctx.group)
+    return _GCopy.apply(x, ctx.group, ctx.tp)
 
 
 def f_reduce(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
     """Sum over the model axis fwd; identity bwd."""
     if ctx.tp == 1:
         return x
-    return _FReduce.apply(x, ctx.group)
+    return _FReduce.apply(x, ctx.group, ctx.tp)
 
 
 def pmean(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
@@ -182,7 +193,7 @@ def rep_param(w: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
     each rank's gradient is partial and the all-reduce is needed."""
     if ctx.tp == 1 or not ctx.sp:
         return w
-    return _GCopy.apply(w, ctx.group)
+    return _GCopy.apply(w, ctx.group, ctx.tp)
 
 
 def grouped_param(w: torch.Tensor, ctx: ParallelCtx, rep: int
@@ -192,7 +203,7 @@ def grouped_param(w: torch.Tensor, ctx: ParallelCtx, rep: int
     the group, so the copies stay equal."""
     if ctx.tp == 1 or rep <= 1:
         return w
-    return _GCopy.apply(w, ctx.kv_group(rep))
+    return _GCopy.apply(w, ctx.kv_group(rep), rep)
 
 
 def tp_rank(ctx: ParallelCtx) -> int:

@@ -75,12 +75,13 @@ from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import attn_forward
-from repro_torch.models.common import (NO_TP, ParallelCtx, dense,
-                                       f_reduce, g_copy, rep_param,
+from repro_torch.models.common import (MODEL_AXIS, NO_TP, ParallelCtx,
+                                       dense, f_reduce, g_copy, rep_param,
                                        rms_norm, save_dots,
                                        sp_gather, sp_scatter, sp_slice,
                                        tp_rank)
 from repro_torch.models.mlp import mlp_forward, moe_forward
+from repro_torch.obs.trace import BLOCK_SPAN, count_collective, scope
 
 Shapes = List[Tuple[str, Tuple[int, ...]]]
 
@@ -331,12 +332,14 @@ class Block(nn.Module):
 
 def _superblock(blocks, x: torch.Tensor):
     """Run the layers of one superblock: (x, the sum of their aux losses
-    or None)."""
+    or None), inside a ``model.block`` range (tracing on), which
+    recompute opens again in backward."""
     aux = None
-    for blk in blocks:
-        x, a = blk(x)
-        if a is not None:
-            aux = a if aux is None else aux + a
+    with scope(BLOCK_SPAN):
+        for blk in blocks:
+            x, a = blk(x)
+            if a is not None:
+                aux = a if aux is None else aux + a
     return x, aux
 
 
@@ -422,6 +425,7 @@ def vocab_parallel_xent(x: torch.Tensor, w_out: torch.Tensor,
     logits = torch.where(keep, logits, -1e30)
     m = logits.max(dim=-1).values.detach()
     if ctx.tp > 1:
+        count_collective("all_reduce", m, (MODEL_AXIS,), ctx.tp)
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=ctx.group)
     se = f_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), ctx)
     local = labels.long() - off

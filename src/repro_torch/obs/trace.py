@@ -23,6 +23,30 @@
     timing span a WINDOW that ends at a host sync (the batched metric
     fetch) and record ``n`` steps per window.
 
+  * **Step spans** (:func:`scope` with the ``*_SPAN`` names below) —
+    ``record_function`` ranges around each phase of a training step:
+    ``train.forward`` (each microbatch's loss), ``train.backward``,
+    ``model.block`` (one superblock; under recompute it opens again
+    inside backward, on the autograd thread), ``optim.update`` (the whole
+    update and the copy into ``x``), ``optim.exchange`` (the dp exchange;
+    the ``obs::`` scopes nest inside it), ``optim.stats`` (the per-step
+    statistics, their reductions included) and ``train.metrics`` (the
+    step metrics' dp mean and the ``v_l1`` all-reduces).  Kineto records
+    them on the device trace's clock, so each kernel and each idle gap
+    of a trace falls to the span open on the host when it was launched.
+
+  * **Collective counters** (:func:`count_collective`) — every
+    ``torch.distributed`` call a training step makes, counted by the mesh
+    axes of its group and its kind: the calls, and the bytes this rank
+    sends by the collective's algorithm (the plan IR's
+    ``wire_send_bytes`` convention: pairwise all_to_all, ring
+    all_gather, all_reduce and reduce_scatter).  :func:`counters` reads
+    them and :func:`reset_counters` clears them.
+
+Scopes, spans and counters are live only while tracing is on
+(:func:`set_tracing`); off, a scope is one shared ``nullcontext`` and a
+count returns at once.
+
 Span naming convention, the reference's letter for letter::
 
     obs::<plan>::s<stage>::<Kind>~<tier>          serial executor
@@ -36,8 +60,9 @@ grammar so both packages' folds parse both packages' names.)
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 _NULL = contextlib.nullcontext()
 _ENABLED = False
@@ -82,10 +107,17 @@ def op_scope(plan_name: str, stage: int, op, bucket: Optional[int] = None):
                                      bucket))
 
 
-# the range around each backward pass of a training step (tracing on):
-# a trace's backward windows, which ``benchmarks.overlap_check --bwd``
-# reads
+# the ranges around the phases of a training step (tracing on); the
+# backward windows are what ``benchmarks.overlap_check --bwd`` reads
+FORWARD_SPAN = "train.forward"
 BACKWARD_SPAN = "train.backward"
+BLOCK_SPAN = "model.block"
+UPDATE_SPAN = "optim.update"
+EXCHANGE_SPAN = "optim.exchange"
+STATS_SPAN = "optim.stats"
+METRICS_SPAN = "train.metrics"
+STEP_SPANS = (FORWARD_SPAN, BACKWARD_SPAN, BLOCK_SPAN, UPDATE_SPAN,
+              EXCHANGE_SPAN, STATS_SPAN, METRICS_SPAN)
 
 
 def scope(name: str):
@@ -95,6 +127,61 @@ def scope(name: str):
         return _NULL
     from torch.profiler import record_function
     return record_function(name)
+
+
+# torch.distributed function -> the collective's kind, by the reference's
+# HLO op names (``analysis.roofline.ByteCounter`` shares the table)
+COLLECTIVE_KINDS = {"all_reduce": "all-reduce",
+                    "all_gather_into_tensor": "all-gather",
+                    "all_gather_single": "all-gather",
+                    "reduce_scatter_tensor": "reduce-scatter",
+                    "all_to_all_single": "all-to-all"}
+
+_COUNTS: Dict[str, Dict[str, List[float]]] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def sent_bytes(kind: str, nbytes: int, n: int) -> float:
+    """Bytes one of ``n`` ranks sends in a collective of ``kind`` whose
+    input on this rank is ``nbytes``, as the plan IR's
+    ``wire_send_bytes``: all_to_all and reduce_scatter (n - 1) / n of
+    it, a ring all_gather its chunk n - 1 times, a ring all_reduce
+    2 (n - 1) / n."""
+    if kind == "all-gather":
+        return float(nbytes * (n - 1))
+    share = (n - 1) / max(n, 1)
+    return 2.0 * nbytes * share if kind == "all-reduce" else nbytes * share
+
+
+def count_collective(fn: str, tensor, axes: Sequence[str], n: int
+                     ) -> None:
+    """Count one ``torch.distributed.<fn>`` call on the group of mesh
+    ``axes`` (``n`` ranks) whose input on this rank is ``tensor``.  A
+    no-op while tracing is off."""
+    if not _ENABLED:
+        return
+    kind = COLLECTIVE_KINDS[fn]
+    sent = sent_bytes(kind, tensor.numel() * tensor.element_size(), n)
+    with _COUNTS_LOCK:
+        row = _COUNTS.setdefault("+".join(axes), {}).setdefault(
+            kind, [0, 0.0])
+        row[0] += 1
+        row[1] += sent
+
+
+def counters() -> Dict[str, Dict[str, Dict[str, float]]]:
+    """``{axes: {kind: {"calls", "bytes"}}}`` counted since the last
+    :func:`reset_counters` (axes joined by ``+``: ``dp``, ``model``,
+    ``pod+data``)."""
+    with _COUNTS_LOCK:
+        return {axes: {kind: {"calls": c, "bytes": b}
+                       for kind, (c, b) in kinds.items()}
+                for axes, kinds in _COUNTS.items()}
+
+
+def reset_counters() -> None:
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
 
 
 class Tracer:

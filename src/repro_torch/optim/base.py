@@ -58,6 +58,8 @@ import torch.distributed as dist
 from repro_torch.core import comm
 from repro_torch.kernels.fused_adam import ops as _fused_adam
 from repro_torch.optim.compressors import Compressor, OneBitCompressor
+from repro_torch.obs.trace import (EXCHANGE_SPAN, STATS_SPAN,
+                                   count_collective, scope)
 from repro_torch.plan.executor import all_gather_into, group_of
 from repro_torch.state.slots import (SlotSpec, StateLayout, StateTree,
                                      ef_errs, init_rank_state)
@@ -146,6 +148,7 @@ def _segment_sum(x: torch.Tensor, segs: SegmentInfo,
     s = torch.stack([x[a:b].sum() if b > a else zero
                      for a, b in segs.ranges()])
     if axes:
+        count_collective("all_reduce", s, axes, comm.axis_size(axes))
         dist.all_reduce(s, group=group_of(axes))
     return s
 
@@ -189,6 +192,7 @@ def segment_sign_agreement(a: torch.Tensor, b: torch.Tensor,
     num = _segment_sum(agree, segs, axes)
     cnt = torch.tensor([float(s) for s in segs.sizes], device=a.device)
     if axes:
+        count_collective("all_reduce", cnt, axes, comm.axis_size(axes))
         dist.all_reduce(cnt, group=group_of(axes))
     return torch.where(cnt > 0.0, num / torch.clamp(cnt, min=1.0),
                        torch.ones_like(cnt))
@@ -354,7 +358,8 @@ class TwoStageOptimizer:
         each model rank holding its shard of every layer); with
         :attr:`_fused_warmup_ok` the whole elementwise update is ONE fused
         op (``kernels/fused_adam``: the Hopper kernel on CUDA tensors)."""
-        g = comm.allreduce_mean(g_local, dp_axes)
+        with scope(EXCHANGE_SPAN):
+            g = comm.allreduce_mean(g_local, dp_axes)
         count = state.count + 1
         lr = _f32(lr)
         if self._fused_warmup_ok:
@@ -375,10 +380,11 @@ class TwoStageOptimizer:
                 upd = upd + self.weight_decay * x
             upd = self._warmup_direction(upd, x, segs, tuple(tp_axes))
             new_x = x - lr * upd
-        stats = self._stats(v_l1=v.abs().sum(),
-                            grad_norm=torch.linalg.vector_norm(g),
-                            momentum_norm=torch.linalg.vector_norm(m),
-                            state=state)
+        with scope(STATS_SPAN):
+            stats = self._stats(v_l1=v.abs().sum(),
+                                grad_norm=torch.linalg.vector_norm(g),
+                                momentum_norm=torch.linalg.vector_norm(m),
+                                state=state)
         return new_x, state._replace(m=m, v=v, count=count), stats
 
     # --- compression stage (ONE path, parameterised by the slots) ----------
@@ -449,22 +455,25 @@ class TwoStageOptimizer:
         if not sync:
             m_local = self.b1 * state.m + (1.0 - self.b1) * g_local
             x_full = self._full_params(state, x, all_axes)
-            stats = self._stats(
-                v_l1=(state.v_shard if sharded else state.v).abs().sum(),
-                grad_norm=torch.linalg.vector_norm(g_local),
-                momentum_norm=torch.linalg.vector_norm(m_local),
-                state=state)
+            with scope(STATS_SPAN):
+                stats = self._stats(
+                    v_l1=(state.v_shard if sharded else state.v).abs().sum(),
+                    grad_norm=torch.linalg.vector_norm(g_local),
+                    momentum_norm=torch.linalg.vector_norm(m_local),
+                    state=state)
             return x_full, state._replace(m=m_local,
                                           count=state.count + 1), stats
 
         ef_slots = self._ef_slots(state)
         if exchange is not None:
-            m_bar, errs = exchange.finish()
+            with scope(EXCHANGE_SPAN):
+                m_bar, errs = exchange.finish()
         else:
             m_local = self.b1 * state.m + (1.0 - self.b1) * g_local
-            m_bar, errs = comm.compressed_exchange(
-                m_local, ef_errs(state, ef_slots), dp_axes, pod_axes,
-                self.compressor, n_buckets=n_buckets)
+            with scope(EXCHANGE_SPAN):
+                m_bar, errs = comm.compressed_exchange(
+                    m_local, ef_errs(state, ef_slots), dp_axes, pod_axes,
+                    self.compressor, n_buckets=n_buckets)
             del m_local
         count = state.count + 1
 
@@ -509,11 +518,12 @@ class TwoStageOptimizer:
         else:
             repl.update(v=v)
             x_full = new_master
-        stats = self._stats(v_l1=v.abs().sum(),
-                            grad_norm=torch.linalg.vector_norm(g_local),
-                            momentum_norm=torch.linalg.vector_norm(m_bar),
-                            worker_err=errs["worker"],
-                            server_err=errs["server"])
+        with scope(STATS_SPAN):
+            stats = self._stats(
+                v_l1=v.abs().sum(),
+                grad_norm=torch.linalg.vector_norm(g_local),
+                momentum_norm=torch.linalg.vector_norm(m_bar),
+                worker_err=errs["worker"], server_err=errs["server"])
         return x_full, state._replace(**repl), stats
 
     # --- audit probe (observation only; repro_torch.obs.audit builds it) ---
@@ -618,6 +628,7 @@ class TwoStageOptimizer:
         n = comm.axis_size(dp_axes)
         out = torch.empty((n * shard.shape[0],), dtype=shard.dtype,
                           device=shard.device)
+        count_collective("all_gather_into_tensor", shard, dp_axes, n)
         all_gather_into(out, shard, group=group_of(dp_axes))
         return out
 

@@ -43,7 +43,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.obs.trace import op_scope, span_name
+from repro_torch.obs.trace import count_collective, op_scope, span_name
 from repro_torch.plan.ir import (AllGather, AllReduce, AllToAll,
                                  CollectiveOp, CommPlan)
 
@@ -175,6 +175,7 @@ def _issue(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
         if not op.axes:
             return Issued(op, comp, errs, value=value)
         value = value.clone()
+        count_collective("all_reduce", value, op.axes, op.n)
         work = dist.all_reduce(value, group=group_of(op.axes),
                                async_op=True)
         return Issued(op, comp, errs, value=value, works=(work,))
@@ -190,11 +191,13 @@ def _issue(op: CollectiveOp, comp, value: torch.Tensor, errs: Errs,
         w = _on_wire(p)
         if isinstance(op, AllToAll):
             r = torch.empty_like(w)
+            count_collective("all_to_all_single", w, op.axes, op.n)
             works.append(dist.all_to_all_single(r, w, group=group,
                                                 async_op=True))
         else:
             r = torch.empty((op.n * w.shape[0],), dtype=w.dtype,
                             device=w.device)
+            count_collective("all_gather_into_tensor", w, op.axes, op.n)
             works.append(all_gather_into(r, w, group=group, async_op=True))
         recv.append((r, p.dtype))
         sent.append(w)

@@ -49,8 +49,10 @@ path, with the same numerics.
 ``flat_grads`` is the front half of the step on its own (the gradient
 the step would exchange, as the reference's), and ``flat_grad_parts`` cuts
 a gradient tree into the per-bucket parts of backward overlap.  With
-tracing on, each backward pass runs inside a ``train.backward`` range
-(``obs.trace.BACKWARD_SPAN``), the window ``overlap_check --bwd`` reads.
+tracing on, each phase of a step runs inside a range of ``obs.trace``:
+each microbatch's forward in ``train.forward``, its backward pass in
+``train.backward`` (the window ``overlap_check --bwd`` reads), the update
+in ``optim.update`` and the metrics' reductions in ``train.metrics``.
 
 ``make_serve_step`` is the serving side: a prefill or decode step over
 the dp x tp mesh (batch-sharded, or seq-sharded flash-decoding for a batch
@@ -74,7 +76,9 @@ from repro_torch.launch.mesh import pod_split
 from repro_torch.models.common import NO_TP, ParallelCtx
 from repro_torch.models.transformer import (Transformer, flat_size,
                                             leaf_shapes, loss_fn)
-from repro_torch.obs.trace import BACKWARD_SPAN, scope
+from repro_torch.obs.trace import (BACKWARD_SPAN, FORWARD_SPAN,
+                                   METRICS_SPAN, UPDATE_SPAN,
+                                   count_collective, scope)
 from repro_torch.optim.base import LAYOUTS  # noqa: F401  (the reference's)
 from repro_torch.optim.base import (SegmentInfo, TwoStageOptimizer,
                                     get_optimizer, segments_of)
@@ -322,9 +326,10 @@ def _grads(ts: TrainState, batch: Dict[str, torch.Tensor],
     mb = b // a
     total, metrics = None, None
     for i in range(a):
-        tot, met = loss_fn(ts.model, batch if a == 1 else
-                           {k: v[i * mb:(i + 1) * mb]
-                            for k, v in batch.items()}, aux_weight)
+        with scope(FORWARD_SPAN):
+            tot, met = loss_fn(ts.model, batch if a == 1 else
+                               {k: v[i * mb:(i + 1) * mb]
+                                for k, v in batch.items()}, aux_weight)
         last = overlap is not None and i == a - 1
         if last:
             overlap.arm()
@@ -459,30 +464,35 @@ def train_step(ts: TrainState, optimizer: TwoStageOptimizer,
     kw = dict(dp_axes=inner, pod_axes=outer, segs=ts.segs, sync=sync,
               n_buckets=n_buckets, tp_axes=tuple(tp_axes),
               exchange=overlap.ex if overlap is not None else None)
-    if sharded:
-        new_x, ts.opt, stats = optimizer.update(ts.g, ts.opt, lr, **kw)
-    elif stage == "warmup":
-        new_x, ts.opt, stats = optimizer.warmup_update(
-            ts.g, ts.opt, ts.x, lr, dp_axes=all_axes, segs=ts.segs,
-            tp_axes=tuple(tp_axes))
-    else:
-        new_x, ts.opt, stats = optimizer.update(ts.g, ts.opt, lr, x=ts.x,
-                                                **kw)
-    with torch.no_grad():
-        ts.x[:ts.d].copy_(new_x[:ts.d])
+    with scope(UPDATE_SPAN):
+        if sharded:
+            new_x, ts.opt, stats = optimizer.update(ts.g, ts.opt, lr, **kw)
+        elif stage == "warmup":
+            new_x, ts.opt, stats = optimizer.warmup_update(
+                ts.g, ts.opt, ts.x, lr, dp_axes=all_axes, segs=ts.segs,
+                tp_axes=tuple(tp_axes))
+        else:
+            new_x, ts.opt, stats = optimizer.update(ts.g, ts.opt, lr,
+                                                    x=ts.x, **kw)
+        with torch.no_grad():
+            ts.x[:ts.d].copy_(new_x[:ts.d])
     out = dict(metrics)
     out["total"] = total
     out.update({k: v for k, v in stats.items() if k != "v_l1"})
-    out = _dp_mean(out, all_axes)
-    v_l1 = stats["v_l1"]
-    if all_axes and (sharded or ts.layout == "local"):
-        v_l1 = v_l1.clone()
-        dist.all_reduce(v_l1, group=group_of(all_axes))  # zero1: the sum
-        if not sharded:
-            v_l1 = v_l1 / comm.axis_size(all_axes)
-    if tp_axes:
-        v_l1 = v_l1.clone()
-        dist.all_reduce(v_l1, group=group_of(tp_axes))
+    with scope(METRICS_SPAN):
+        out = _dp_mean(out, all_axes)
+        v_l1 = stats["v_l1"]
+        if all_axes and (sharded or ts.layout == "local"):
+            v_l1, n = v_l1.clone(), comm.axis_size(all_axes)
+            count_collective("all_reduce", v_l1, all_axes, n)
+            dist.all_reduce(v_l1, group=group_of(all_axes))  # zero1: the sum
+            if not sharded:
+                v_l1 = v_l1 / n
+        if tp_axes:
+            v_l1 = v_l1.clone()
+            count_collective("all_reduce", v_l1, tp_axes,
+                             comm.axis_size(tp_axes))
+            dist.all_reduce(v_l1, group=group_of(tp_axes))
     out["v_l1"] = v_l1
     return out
 

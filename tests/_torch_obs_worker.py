@@ -7,8 +7,11 @@ once with tracing off and once with tracing on under ``torch.profiler``;
 saves per plan the ``obs::`` range names of the trace, the
 ``torch.distributed`` calls of both runs (``ByteCounter.calls``) and
 whether both runs' results and EF slots are bitwise equal; then
-``probe_plan`` of the hierarchical plan (intra and cross samples).  Writes
-``spans<rank>.json``.
+``probe_plan`` of the hierarchical plan (intra and cross samples); then a
+``bert-base-smoke`` warmup and compressed ``train_step`` over the four dp
+ranks, from the same state with tracing off and on (their calls, whether
+both states are bitwise equal, and the collective counters of each
+compressed step).  Writes ``spans<rank>.json``.
 
 ``runs_main``: the port's ``run`` per entry of ``runs.json`` under the
 call counter; saves each run's history (without the step walls), its
@@ -85,10 +88,44 @@ def spans_main(rank: int, world: int, workdir: str) -> None:
                     torch.equal(e_off[k], e_on[k]) for k in e_off)}
         out["probe"] = [s.__dict__ for s in probe_plan(plans["hier"], "cpu",
                                                        iters=2, repeats=3)]
+        out["step"] = _step_on_off(("pod", "data"))
         with open(os.path.join(workdir, f"spans{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+def _step_on_off(axes) -> dict:
+    """Two ``train_step``s (warmup, compressed) over the dp ``axes`` from
+    one state, with tracing off and on."""
+    from repro_torch.benchmarks.comm_volume import ByteCounter
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs import trace
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.step import init_train_state, train_step
+    cfg = get_config("bert-base-smoke")
+    opt = get_optimizer("onebit_adam", compressor="onebit",
+                        compressor_kwargs={"block_size": BLOCK})
+    batch = SyntheticStream(cfg, InputShape("t", 16, 2, "train"),
+                            seed=dist.get_rank()).batch_at(0)
+    runs = {}
+    for on in (False, True):
+        ts = init_train_state(cfg, init_params(
+            cfg, torch.Generator().manual_seed(0)), opt, BLOCK, n_dp=4)
+        with trace.tracing(on), ByteCounter() as calls:
+            train_step(ts, opt, batch, 1e-3, "warmup", axes)
+            trace.reset_counters()
+            metrics = train_step(ts, opt, batch, 1e-3, "compressed", axes)
+        runs[on] = (ts, calls.calls, trace.counters())
+    off, on = runs[False][0], runs[True][0]
+    return {"calls_off": runs[False][1], "calls_on": runs[True][1],
+            "bitwise": torch.equal(off.x, on.x) and all(
+                torch.equal(off.opt[k], on.opt[k]) for k in off.opt),
+            "counters_off": runs[False][2], "counters_on": runs[True][2],
+            "d_pad": off.x.shape[0], "n_metrics": len(metrics) - 1}
 
 
 def _digest(t: torch.Tensor) -> str:

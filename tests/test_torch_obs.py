@@ -16,6 +16,15 @@
     ``scoped_op_names`` of the same plans, and the ``torch.distributed``
     calls (``benchmarks.comm_volume.ByteCounter``) and results are the
     same with tracing on and off.
+  * Step spans and counters: every step span a shared ``nullcontext``
+    and the counters at zero when off; on, a CPU profile of one
+    ``bert-base-smoke`` step holds each span, ``model.block`` once a
+    superblock in the forward and again inside backward under recompute;
+    the counters send the plan IR's ``wire_send_bytes`` for each kind;
+    over the 2 x 2 gloo ranks a warmup and a compressed ``train_step``
+    leave state and calls bitwise as with tracing off, and the compressed
+    step's dp counters hold its plan's ``wire_send_bytes`` and a call a
+    payload leaf of each op, plus the metrics' all-reduce.
   * Drift: the same samples give the reference's report, drifting pairs,
     fit and recalibration JSON; ``probe_plan`` over the 2 x 2 ranks feeds
     the monitor (intra and cross samples) and its events validate.
@@ -191,6 +200,80 @@ def test_op_scope_disabled_is_shared_nullcontext_and_enabled_a_range():
     assert not PT.tracing_enabled()
 
 
+def test_step_spans_and_counters_are_off_by_default():
+    assert not PT.tracing_enabled()
+    assert PT.scope(PT.FORWARD_SPAN) is PT.op_scope("p", 0, None)
+    assert all(PT.scope(s) is PT.scope(PT.FORWARD_SPAN)
+               for s in PT.STEP_SPANS)
+    PT.reset_counters()
+    PT.count_collective("all_reduce", torch.zeros(8), ("dp",), 2)
+    assert PT.counters() == {}
+    with PT.tracing(True):
+        assert PT.scope(PT.BLOCK_SPAN).name == PT.BLOCK_SPAN
+        PT.count_collective("all_reduce", torch.zeros(8), ("dp",), 2)
+    assert PT.counters() == {"dp": {"all-reduce": {"calls": 1,
+                                                   "bytes": 32.0}}}
+    PT.reset_counters()
+    assert PT.counters() == {}
+
+
+@pytest.mark.parametrize("fn,op", [
+    ("all_to_all_single", "AllToAll"), ("all_gather_into_tensor",
+                                        "AllGather"),
+    ("all_reduce", "AllReduce"), ("reduce_scatter_tensor",
+                                  "ReduceScatter")])
+def test_counters_send_the_plans_wire_bytes(fn, op):
+    from repro_torch.plan import ir
+    ws = (ir.WireSpec("uint8", (512,)), ir.WireSpec("float32", (8,)))
+    want = getattr(ir, op)(axes=("dp",), n=4, tier="intra", payload=ws,
+                           d_in=4096)
+    PT.reset_counters()
+    with PT.tracing(True):
+        for w in ws:
+            PT.count_collective(fn, torch.zeros(w.shape,
+                                                dtype=getattr(torch, w.dtype)),
+                                ("dp",), want.n)
+    got = PT.counters()["dp"][PT.COLLECTIVE_KINDS[fn]]
+    PT.reset_counters()
+    assert got == {"calls": 2, "bytes": pytest.approx(want.wire_send_bytes)}
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_step_spans_under_the_profiler(tmp_path, remat):
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.step import init_train_state, train_step
+    cfg = dataclasses.replace(get_config("bert-base-smoke"), remat=remat)
+    opt = get_optimizer("onebit_adam", compressor="onebit",
+                        compressor_kwargs={"block_size": 256})
+    ts = init_train_state(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0)), opt, 256)
+    batch = SyntheticStream(cfg, InputShape("t", 16, 2, "train"),
+                            seed=0).batch_at(0)
+    train_step(ts, opt, batch, 1e-3, "warmup")
+    with PT.tracing(True), profile(activities=[ProfilerActivity.CPU]) as p:
+        train_step(ts, opt, batch, 1e-3, "compressed")
+    path = str(tmp_path / "trace.json")
+    p.export_chrome_trace(path)
+    with open(path) as f:
+        ranges = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    names = [e["name"] for e in ranges]
+    assert set(PT.STEP_SPANS) <= set(names)
+    bwd = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
+           if e["name"] == PT.BACKWARD_SPAN]
+    blocks = [any(a <= e["ts"] <= b for a, b in bwd) for e in ranges
+              if e["name"] == PT.BLOCK_SPAN]
+    n = len(ts.model.superblocks())
+    assert blocks.count(False) == n
+    assert blocks.count(True) == (n if remat else 0)
+
+
 def test_tracer_records_emits_and_closes_on_raise(tmp_path):
     with PM.as_sink(str(tmp_path)) as sink:
         tr = PT.Tracer(sink)
@@ -249,6 +332,34 @@ def test_tracing_leaves_calls_and_results_unchanged(spans, key):
         assert out[key]["calls_on"] == out[key]["calls_off"], rank
         assert out[key]["calls_on"], rank        # real collectives ran
         assert out[key]["bitwise"], rank
+
+
+def test_step_spans_leave_the_step_and_its_calls_unchanged(spans):
+    for rank, out in enumerate(spans):
+        st = out["step"]
+        assert st["calls_on"] == st["calls_off"] and st["calls_on"], rank
+        assert st["bitwise"], rank
+        assert st["counters_off"] == {}, rank
+
+
+def test_step_counters_are_the_plans_wire_bytes(spans):
+    from repro_torch.optim import get_compressor
+    from repro_torch.plan import AllReduce, WireSpec, flat_schedule
+    comp = get_compressor("onebit", block_size=ow.BLOCK)
+    for rank, out in enumerate(spans):
+        st = out["step"]
+        plan = flat_schedule(comp, st["d_pad"], 4, ("pod", "data"))
+        metrics = AllReduce(axes=("pod", "data"), n=4, tier="intra",
+                            payload=(WireSpec("float32",
+                                              (st["n_metrics"],)),),
+                            d_in=st["n_metrics"])
+        assert list(st["counters_on"]) == ["pod+data"], rank
+        dp = st["counters_on"]["pod+data"].values()
+        assert sum(c["bytes"] for c in dp) == pytest.approx(
+            plan.wire_send_bytes() + metrics.wire_send_bytes), rank
+        # one call a payload leaf (the signs, the scales) of each op
+        assert sum(c["calls"] for c in dp) == \
+            sum(len(op.payload) for op in plan.ops) + 1, rank
 
 
 def test_probe_plan_feeds_the_monitor_over_gloo(spans):
