@@ -12,7 +12,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main path's shapes (BERT-Large, d_pad = 364,564,480,
                block 4096), with CUDA-event times of both and the
-               device-memory bound.
+               device-memory bound; the LM head's kernels forward and
+               backward at the main path's head (16 x 128 tokens, d 1,024,
+               V 30,528, 8 vocab segments a row tile) and at
+               internlm2-1.8b's rank-1 half vocab at tp 2, timed at the
+               main path's head beside the f32 torch path they replaced
+               (``benchmarks/lm_head_bench.py``).
   4. small   — the port's ``run`` on ``bert-large-smoke`` on the card and on
                the CPU from the same seed: the loss histories must agree.
   5. main    — the main path through the user entry point
@@ -343,15 +348,33 @@ F32_SPLIT_PASSES = 3
 
 MAIN = dict(arch="bert-large", recipe="onebit_adam", steps=6,
             warmup_steps=3, batch=16, seq=128, block_size=4096)
+MAIN_TOKENS = MAIN["batch"] * MAIN["seq"]
 SMALL = dict(arch="bert-large-smoke", recipe="onebit_adam", steps=5,
              warmup_steps=3, batch=4, seq=64, block_size=512, lr=2e-3,
              lr_warmup=2)
 # cuBLAS and the CPU BLAS sum in other orders; after the switch a ULP
 # difference near zero can flip single sign bits of the 1-bit payload
 SMALL_LOSS_RTOL = 1e-3
+
+
+def head_launches(n: int) -> dict:
+    """The LM head's launches of ``n`` training losses: its forward and
+    its backward once each (``kernels.lm_head_xent``)."""
+    return {"lm_head_xent_fwd": n, "lm_head_xent_bwd": n}
+
+
+NO_HEAD = head_launches(0)
+# phase 3's LM-head shapes (arch, tp, rank, tokens): the main path's head
+# and internlm2-1.8b's rank-1 shard at tp 2
+HEAD_CASES = (("bert-large", 1, 0, MAIN_TOKENS),
+              ("internlm2-1.8b", 2, 1, MAIN_TOKENS))
+# tests/test_torch_lm_head_xent.py's tolerances: the statistics at f32
+# rounding; dX of a bf16 x (three of the nine split products) and dW
+# relative to their norms
+HEAD_STAT_ATOL, HEAD_S_RTOL, HEAD_DX_REL, HEAD_DW_REL = 2e-5, 2e-5, 1e-4, 1e-5
 EXPECTED_LAUNCHES = {"adam_step": 3, "ef_compress": 6, "decompress": 6,
                      "flash_attention": 0, "flash_attention_wgmma": 0,
-                     "flash_attention_wide": 0}
+                     "flash_attention_wide": 0, **head_launches(6)}
 # phase 21: the main path's model with the selective recompute
 DOTS_ARCH = "bert-large-dots"
 # block sizes beside the main path's 4096 that ef_compress must take
@@ -370,13 +393,18 @@ ZERONE_STEPS = (3, 5)
 NO_FLASH = {"flash_attention": 0, "flash_attention_wgmma": 0,
             "flash_attention_wide": 0}
 FAMILY_LAUNCHES = {
-    "onebit_lamb": {"adam_step": 0, "ef_compress": 6, "decompress": 6},
+    "onebit_lamb": {"adam_step": 0, "ef_compress": 6, "decompress": 6,
+                    **head_launches(6)},
     "zerone_adam_local": {"adam_step": 3, "ef_compress": 8,
-                          "decompress": 8},
-    "onebit_adam_topk": {"adam_step": 3, "ef_compress": 0, "decompress": 0},
-    "zero1_accum": {"adam_step": 3, "ef_compress": 6, "decompress": 6},
+                          "decompress": 8, **head_launches(8)},
+    "onebit_adam_topk": {"adam_step": 3, "ef_compress": 0, "decompress": 0,
+                         **head_launches(6)},
+    # two microbatches a step
+    "zero1_accum": {"adam_step": 3, "ef_compress": 6, "decompress": 6,
+                    **head_launches(12)},
     # the resumed run: steps 4 and 5, both compressed
-    "resume": {"adam_step": 0, "ef_compress": 4, "decompress": 4},
+    "resume": {"adam_step": 0, "ef_compress": 4, "decompress": 4,
+               **head_launches(2)},
 }
 # the accumulated run's warmup losses against phase 5's: the microbatch
 # means weight the masked tokens per microbatch, the full batch per token
@@ -391,7 +419,7 @@ PIPE_BUCKETS = 4
 PIPE_UNITS = (22251, 22251, 22251, 22252)
 PIPE_LAUNCHES = {"adam_step": 3, "ef_compress": 24, "decompress": 24,
                  "flash_attention": 0, "flash_attention_wgmma": 0,
-                 "flash_attention_wide": 0}
+                 "flash_attention_wide": 0, **head_launches(6)}
 PIPE = dict(pipeline=PIPE_BUCKETS, overlap_bwd="on")
 # buckets 0-2 hold stacked block leaves whose layer-0 slices land before the
 # embedding's gradient; bucket 3 holds the embedding and issues last
@@ -428,8 +456,10 @@ PLAN_SHARE_MAX = 1.05
 # backward overlap and a profile of the last two steps (14b)
 OBS_RUN = dict(memory="on", audit="on", audit_every=1)
 # phase 5's launches plus one ef_compress and one decompress an audited
-# step (the probe's round trip of the compressed momentum)
-OBS_LAUNCHES = dict(EXPECTED_LAUNCHES, ef_compress=9, decompress=9)
+# step (the probe's round trip of the compressed momentum) and the probe's
+# own loss and backward through the LM head
+OBS_LAUNCHES = dict(EXPECTED_LAUNCHES, ef_compress=9, decompress=9,
+                    **head_launches(9))
 OBS_CLI = ["--arch", "bert-large", "--steps", "6", "--warmup-steps", "3",
            "--batch", "16", "--seq", "128", "--pipeline", "4",
            "--overlap-bwd", "on", "--profile-steps", "2", "--memory", "on",
@@ -451,7 +481,7 @@ FAMILIES_SMALL = dict(recipe="onebit_adam", steps=5, warmup_steps=3,
 # 64 text tokens after the 16-patch prefix
 FAMILIES_SEQ = {"internvl2-2b-smoke": 80}
 FAMILIES_SMALL_LAUNCHES = dict(NO_FLASH, adam_step=3, ef_compress=4,
-                               decompress=4)
+                               decompress=4, **head_launches(5))
 # the first compressed payload's sign bits that may differ card/cpu from
 # one state (tests/test_torch_slice.py's ceiling against the reference: a
 # bit flips only where the local momentum lies within the rounding
@@ -470,7 +500,8 @@ FAMILIES_SIGN_FLIP_CEILING = 1e-3
 MAMBA_ARCH = "falcon-mamba-7b-2l"
 MAMBA = dict(arch=MAMBA_ARCH, recipe="onebit_adam", steps=6,
              warmup_steps=3, batch=2, seq=2048, block_size=4096, seed=0)
-MAMBA_LAUNCHES = dict(NO_FLASH, adam_step=3, ef_compress=6, decompress=6)
+MAMBA_LAUNCHES = dict(NO_FLASH, adam_step=3, ef_compress=6, decompress=6,
+                      **head_launches(6))
 # 15c: mixtral-8x22b's MoE layer alone at full width: f32 parameters from
 # seed 0, bf16 inputs of batch 2 x seq 4096 (t = 8192, capacity 2560)
 MOE_LAYER = dict(batch=2, seq=4096, seed=0)
@@ -770,6 +801,86 @@ def phase_kernels(d: int, block: int, seed: int = 0):
         f"{lib_err:.3e}")
     del xa, m, v, g
     torch.cuda.empty_cache()
+    entries += phase_head_kernels(seed)
+    return entries
+
+
+def phase_head_kernels(seed: int = 0) -> list:
+    """The LM head's kernels against their plain version at
+    ``HEAD_CASES`` (m_l, s_l, ll_l, dX, dW at the unit test's tolerances),
+    then timed at the main path's head; the two kernel entries."""
+    from repro_torch.benchmarks import lm_head_bench
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lm_head_xent import kernel as K
+    from repro_torch.kernels.lm_head_xent import ref as R
+    dev = torch.device("cuda")
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    errs = {}
+    for arch, tp, rank, t in HEAD_CASES:
+        cfg = get_config(arch)
+        d, v_l = cfg.d_model, cfg.padded_vocab(tp) // tp
+        off = rank * v_l
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(t, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(d, v_l, generator=gen, device=dev) * 0.5 / d ** 0.5
+        labels = torch.randint(0, cfg.vocab, (t,), generator=gen, device=dev)
+        local = labels - off
+        lab = torch.where((local >= 0) & (local < v_l), local, -1).int()
+        n_keep = min(max(cfg.vocab - off, 0), v_l)
+        a = torch.rand(t, generator=gen, device=dev) / t
+        b = -torch.rand(t, generator=gen, device=dev) / t
+        m, s, ll, saved = K.forward(x, w, lab, n_keep)
+        m0, s0, ll0 = R.forward(x, w, lab, n_keep)
+        torch.testing.assert_close(m, m0, rtol=0, atol=HEAD_STAT_ATOL)
+        torch.testing.assert_close(s, s0, rtol=HEAD_S_RTOL, atol=0)
+        torch.testing.assert_close(ll, ll0, rtol=0, atol=HEAD_STAT_ATOL)
+        dx, dw = K.backward(saved, lab, n_keep, m, a, b, d)
+        dx0, dw0 = R.backward(x, w, lab, n_keep, m0, a, b)
+        e = dict(m=float((m - m0).abs().max()),
+                 s_rel=float(((s - s0).abs() / s0).max()),
+                 ll=float((ll - ll0).abs().max()), dx_rel=rel(dx, dx0),
+                 dw_rel=rel(dw, dw0),
+                 segments=K.segments(dev, t, v_l))
+        if e["dx_rel"] >= HEAD_DX_REL or e["dw_rel"] >= HEAD_DW_REL:
+            raise AssertionError(f"lm_head_xent {arch} tp {tp}: {e}")
+        errs[f"{arch}.tp{tp}.rank{rank}"] = e
+        log(f"[kernels] lm_head_xent at {arch}'s head (T {t}, d {d}, V_l "
+            f"{v_l}, offset {off}, {e['segments']} vocab segments) against "
+            f"the plain version: max |m| err {e['m']:.2e}, s rel "
+            f"{e['s_rel']:.2e}, |ll| {e['ll']:.2e}, dX {e['dx_rel']:.2e}, "
+            f"dW {e['dw_rel']:.2e} of the norm")
+        del x, w, saved, dx, dw, dx0, dw0
+        torch.cuda.empty_cache()
+    _, _, _, t = HEAD_CASES[0]
+    cfg = get_config(HEAD_CASES[0][0])
+    r = lm_head_bench.run_case("main", t, cfg.d_model, cfg.padded_vocab(1),
+                               cfg.vocab, seed)
+    torch.cuda.empty_cache()
+    entries = []
+    for key, counter in (("fwd", "lm_head_xent_fwd"),
+                         ("bwd", "lm_head_xent_bwd")):
+        x = r[key]
+        entries.append(dict(
+            name=counter, route="cuda",
+            source="src/repro_torch/csrc/lm_head_xent.cu", replaces=None,
+            ok=True, max_abs_err=max(max(e["m"], e["ll"])
+                                     for e in errs.values()),
+            errs=errs, ms=x["ms"],
+            plain_ms=x["plain_ms"], bound_ms=x["bound_ms"],
+            bound_by=f"{x['bound_by']} at the TF32 rate",
+            split_floor_ms=x["split_floor_ms"], library_ms=x["library_ms"],
+            host_ms=r["host_ms"], library_host_ms=r["library_host_ms"],
+            launches_per_step=1))
+        log(f"[kernels] {counter} at the main path's head ok: {x['ms']:.3f} "
+            f"ms (plain {x['plain_ms']:.3f} ms, the f32 torch path "
+            f"{x['library_ms']:.3f} ms, bound {x['bound_ms']:.3f} ms by "
+            f"{x['bound_by']} at the TF32 rate, the split's floor "
+            f"{x['split_floor_ms']:.3f} ms)")
+    log(f"[kernels] lm_head_xent host ms a loss and its backward: "
+        f"{r['host_ms']:.3f} (the f32 torch path {r['library_host_ms']:.3f})")
     return entries
 
 
@@ -1596,7 +1707,7 @@ def phase_serve_main():
     peak = torch.cuda.max_memory_allocated()
     want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
             "flash_attention": 0, "flash_attention_wgmma": cfg.n_layers,
-            "flash_attention_wide": 0}
+            "flash_attention_wide": 0, **NO_HEAD}
     if counts != want:
         raise AssertionError(f"serve launch counts {counts}, expected {want}")
     tokens = out["tokens"]
@@ -1676,7 +1787,7 @@ def phase_serve_f32() -> dict:
     peak = torch.cuda.max_memory_allocated()
     want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
             "flash_attention": cfg.n_layers, "flash_attention_wgmma": 0,
-            "flash_attention_wide": 0}
+            "flash_attention_wide": 0, **NO_HEAD}
     if counts != want:
         raise AssertionError(f"serve-f32 launch counts {counts}, expected "
                              f"{want}")
@@ -1836,7 +1947,7 @@ def phase_oracles() -> dict:
                         " unequal)" for k in ("x", "m", "v", "worker_err",
                                               "server_err")))
         steps.append(rec)
-    want = dict(ORACLE_LAUNCHES, **NO_FLASH)
+    want = dict(ORACLE_LAUNCHES, **NO_FLASH, **NO_HEAD)
     if launches != want:
         raise AssertionError(f"oracles: launch counts {launches}, expected "
                              f"{want}")
@@ -1863,7 +1974,7 @@ def phase_oracles() -> dict:
         z1[name] = _differs(got, want)
         if z1[name]["n_unequal"]:
             raise AssertionError(f"oracles zero1: {name} {z1[name]}")
-    if z1_launches != dict(ORACLE_ZERO1_LAUNCHES, **NO_FLASH):
+    if z1_launches != dict(ORACLE_ZERO1_LAUNCHES, **NO_FLASH, **NO_HEAD):
         raise AssertionError(f"oracles zero1: launch counts {z1_launches}")
     peak = torch.cuda.max_memory_allocated()
     wall = time.perf_counter() - t_phase
@@ -2021,7 +2132,8 @@ def phase_plan(main_losses, main_state, main_stats) -> dict:
     nb = res["n_buckets"]
     steps_c = MAIN["steps"] - MAIN["warmup_steps"]
     want = dict(NO_FLASH, adam_step=MAIN["warmup_steps"],
-                ef_compress=2 * steps_c * nb, decompress=2 * steps_c * nb)
+                ef_compress=2 * steps_c * nb, decompress=2 * steps_c * nb,
+                **head_launches(MAIN["steps"]))
     if counts != want or res["launches"] != counts:
         raise AssertionError(f"plan: launch counts {counts}, expected "
                              f"{want}")
@@ -2626,7 +2738,7 @@ def phase_serve_families_small() -> dict:
             cpu, cpu_routes = _family_teacher_forced(
                 cfg, params, pre, steps, torch.device("cpu"), spy)
         want = dict(NO_FLASH, adam_step=0, ef_compress=0, decompress=0,
-                    flash_attention=n_attn)
+                    flash_attention=n_attn, **NO_HEAD)
         if counts != want:
             raise AssertionError(f"serve-families {arch}: launch counts "
                                  f"{counts}, expected {want}")
@@ -2690,7 +2802,8 @@ def phase_serve_mamba() -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     counts = build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = dict(NO_FLASH, adam_step=0, ef_compress=0, decompress=0)
+    want = dict(NO_FLASH, adam_step=0, ef_compress=0, decompress=0,
+                **NO_HEAD)
     if counts != want:
         raise AssertionError(f"serve-mamba launch counts {counts}, "
                              f"expected {want}")
@@ -2778,7 +2891,7 @@ def phase_serve_mixtral() -> dict:
     counts = build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = dict(NO_FLASH, adam_step=0, ef_compress=0, decompress=0,
-                flash_attention_wgmma=cfg.n_layers)
+                flash_attention_wgmma=cfg.n_layers, **NO_HEAD)
     if counts != want:
         raise AssertionError(f"serve-mixtral launch counts {counts}, "
                              f"expected {want}")
@@ -3409,7 +3522,7 @@ def phase_tp_serve(main_stats) -> dict:
     counts = build.launch_counts()
     want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
             "flash_attention": 0, "flash_attention_wgmma": sv["layers"],
-            "flash_attention_wide": 0}
+            "flash_attention_wide": 0, **NO_HEAD}
     if counts != want:
         raise AssertionError(f"[tp-serve] prefill launches {counts}, "
                              f"expected {want}")

@@ -55,13 +55,29 @@ _SIGNATURES = {
     "repro_flash_attention_wide": ((_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                     ctypes.c_int, ctypes.c_int, _I64, _P),
                                    ctypes.c_int),
+    "repro_lm_head_split": ((_P, _I64, _I64, _I64, _P, _I64, _I64,
+                             ctypes.c_int, _P), ctypes.c_int),
+    "repro_lm_head_xent_fwd": ((_P, ctypes.c_int, _I64, _I64, _I64, _P, _I64,
+                                _I64, _I64, _I64, _P, _I64, _I64, _P, _P, _P,
+                                _P), ctypes.c_int),
+    "repro_lm_head_xent_dlogits": ((_P, ctypes.c_int, _I64, _I64, _I64, _P,
+                                    _I64, _I64, _I64, _I64, _P, _I64, _P, _P,
+                                    _P, _P, _I64, _I64, _I64, _P),
+                                   ctypes.c_int),
+    "repro_lm_head_xent_dx": ((_P, _I64, _I64, _I64, _I64, _P, _I64, _I64,
+                               _I64, _P, _I64, ctypes.c_int, _I64, _P),
+                              ctypes.c_int),
+    "repro_lm_head_xent_dw": ((_P, ctypes.c_int, _I64, _I64, _I64, _I64, _P,
+                               _I64, _I64, _I64, _P, _I64, ctypes.c_int, _I64,
+                               _P), ctypes.c_int),
     "repro_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 
 _LAUNCHES: Dict[str, int] = {"ef_compress": 0, "decompress": 0,
                              "adam_step": 0, "flash_attention": 0,
                              "flash_attention_wgmma": 0,
-                             "flash_attention_wide": 0}
+                             "flash_attention_wide": 0,
+                             "lm_head_xent_fwd": 0, "lm_head_xent_bwd": 0}
 _LIB: Optional[ctypes.CDLL] = None
 _RECORDERS: List[List[Tuple[str, object]]] = []
 

@@ -71,6 +71,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import shard_leaf
+from repro_torch.kernels.lm_head_xent.ops import lm_head_xent
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
@@ -410,28 +411,26 @@ def vocab_parallel_xent(x: torch.Tensor, w_out: torch.Tensor,
                         cfg: ArchConfig, ctx: ParallelCtx = NO_TP,
                         skip_gcopy: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-entropy over the vocab-parallel logits: f32 logits of this
-    rank's ``w_out`` columns, the padded vocab columns masked to -1e30,
-    the row max taken over the model axis (outside autograd), the
-    partition function and the label logit summed over it.  Returns (mean
-    loss, mean greedy accuracy) over ``mask``.  ``skip_gcopy``: x came
-    through ``sp_gather``, whose backward already sums the partial
-    cotangents."""
+    """Cross-entropy over the vocab-parallel logits: the f32 logits of
+    this rank's ``w_out`` columns, the padded vocab columns masked to
+    -1e30, the row max taken over the model axis (outside autograd), the
+    partition function and the label logit summed over it.  The logits
+    themselves stay inside ``kernels.lm_head_xent``, which gives this
+    rank's row max ``m_l``, sum of ``exp(logit - m_l)`` and label logit;
+    the partition function is their rescaled sum.  Returns (mean loss,
+    mean greedy accuracy) over ``mask``.  ``skip_gcopy``: x came through
+    ``sp_gather``, whose backward already sums the partial cotangents."""
     xin = x if skip_gcopy else g_copy(x, ctx)
-    logits = xin.to(torch.float32) @ w_out.to(torch.float32)
-    v_l = logits.shape[-1]
-    off = tp_rank(ctx) * v_l
-    keep = torch.arange(v_l, device=logits.device) + off < cfg.vocab
-    logits = torch.where(keep, logits, -1e30)
-    m = logits.max(dim=-1).values.detach()
+    v_l = w_out.shape[-1]
+    m_l, s_l, ll = lm_head_xent(xin, w_out, labels, tp_rank(ctx) * v_l,
+                                cfg.vocab)
+    m = m_l
     if ctx.tp > 1:
+        m = m_l.clone()
         count_collective("all_reduce", m, (MODEL_AXIS,), ctx.tp)
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=ctx.group)
-    se = f_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), ctx)
-    local = labels.long() - off
-    valid = (local >= 0) & (local < v_l)
-    ll = logits.gather(-1, local.clamp(0, v_l - 1)[..., None])[..., 0]
-    ll = f_reduce(torch.where(valid, ll, 0.0), ctx)
+    se = f_reduce(s_l * torch.exp(m_l - m), ctx)
+    ll = f_reduce(ll, ctx)
     nll = torch.log(se) + m - ll
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom

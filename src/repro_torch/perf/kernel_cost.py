@@ -29,6 +29,10 @@ output written once:
     (4 B H S D elements), and does 4 D operations for every (query, key)
     pair the mask lets through (:func:`flash_attention_cost`).
 
+  * ``csrc/lm_head_xent.cu``: the LM head and its cross-entropy, counted
+    as the bf16 tensor-core products it runs, 2 T d V_l operations each
+    (:func:`lm_head_xent_cost`).
+
 These are the byte counts of PERF.md's bound column, and the tests pin
 the closed forms to the reference's (``tests/test_torch_perf.py``).  The
 dry run (``launch.dryrun``) prices every kernel launch of a traced step
@@ -139,3 +143,33 @@ def flash_attention_cost(b: int, h: int, s: int, d: int, itemsize: int,
     return ComputeSpec(flops=4.0 * b * h * d * attention_pairs(s, causal,
                                                                 window),
                        hbm_bytes=4 * b * h * s * d * itemsize, kernels=1)
+
+
+def lm_head_xent_cost(t: int, d: int, v_l: int, itemsize: int,
+                      exact16: bool, backward: bool,
+                      chunk_rows: int = 4096) -> ComputeSpec:
+    """One call of the LM-head cross-entropy op on x (T, d) of
+    ``itemsize`` bytes and w (d, V_l) f32.  ``exact16``: x is bf16 and
+    enters its products as it is (three bf16 products for each f32 one);
+    otherwise x is split too and each takes six.  The forward splits w
+    (reads 4 d V_l bytes, writes 6) and reads x and the pieces once,
+    writing three T-length vectors; the backward recomputes the logits,
+    writes the logit gradient as three bf16 pieces a chunk of
+    ``chunk_rows`` rows (6 T V_l bytes) that dX and dW read once each,
+    and writes dX and dW, dW read again for every chunk after the first.
+    """
+    terms = 3 if exact16 else 6
+    unit = 2.0 * t * d * v_l
+    x_bytes = t * d * itemsize
+    pieces = 6 * d * v_l
+    if not backward:
+        return ComputeSpec(flops=terms * unit,
+                           hbm_bytes=x_bytes + F32 * d * v_l + 2 * pieces
+                           + 3 * F32 * t,
+                           kernels=2 if exact16 else 3)
+    chunks = max(1, -(-t // chunk_rows))
+    return ComputeSpec(flops=3 * terms * unit,
+                       hbm_bytes=x_bytes + pieces + 4 * F32 * t
+                       + 3 * 6 * t * v_l + F32 * t * d
+                       + F32 * d * v_l * (2 * chunks - 1),
+                       kernels=3 * chunks)

@@ -154,7 +154,9 @@ def test_small_run_on_card_matches_cpu(card):
     assert on_card["launches"] == {"adam_step": 2, "ef_compress": 4,
                                    "decompress": 4, "flash_attention": 0,
                                    "flash_attention_wgmma": 0,
-                                   "flash_attention_wide": 0}
+                                   "flash_attention_wide": 0,
+                                   "lm_head_xent_fwd": 4,
+                                   "lm_head_xent_bwd": 4}
     cpu = run(device="cpu", **kw)
     np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
                                [h["loss"] for h in cpu["history"]],
@@ -282,7 +284,8 @@ def test_family_run_on_card_matches_cpu(card, arch):
     one seed: 2 warmup steps and the first compressed step's loss (taken
     before any compressed update, so the routing of a MoE layer cannot
     yet differ) agree to rtol 1e-3, the launches are the optimizer
-    path's, aux is positive exactly with experts."""
+    path's and one LM-head launch each way a step, aux is positive
+    exactly with experts."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import run
     seq = 48 if arch.startswith("internvl2") else 32
@@ -292,7 +295,9 @@ def test_family_run_on_card_matches_cpu(card, arch):
     assert on_card["launches"] == {"adam_step": 2, "ef_compress": 2,
                                    "decompress": 2, "flash_attention": 0,
                                    "flash_attention_wgmma": 0,
-                                   "flash_attention_wide": 0}
+                                   "flash_attention_wide": 0,
+                                   "lm_head_xent_fwd": 3,
+                                   "lm_head_xent_bwd": 3}
     cpu = run(device="cpu", **kw)
     np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
                                [h["loss"] for h in cpu["history"]],

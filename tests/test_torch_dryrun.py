@@ -265,7 +265,8 @@ def test_reduced_archs_trace_on_a_fake_2x2_mesh(arch):
         assert rl["coll_by_kind"].get("all-reduce", 0) > 0, name
         if shape.kind == "train":
             assert {k: v["launches"] for k, v in rl["kernels"].items()} == \
-                {"ef_compress": 2, "decompress": 2}, name
+                {"ef_compress": 2, "decompress": 2, "lm_head_xent_fwd": 1,
+                 "lm_head_xent_bwd": 1}, name
             assert "memory_ledger" in r
         if shape.kind == "decode":
             assert rl["kernels"] == {}

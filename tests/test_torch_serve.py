@@ -161,7 +161,9 @@ def test_cpu_generate_launches_no_kernel(params):
     assert build.launch_counts() == {"ef_compress": 0, "decompress": 0,
                                      "adam_step": 0, "flash_attention": 0,
                                      "flash_attention_wgmma": 0,
-                                     "flash_attention_wide": 0}
+                                     "flash_attention_wide": 0,
+                                     "lm_head_xent_fwd": 0,
+                                     "lm_head_xent_bwd": 0}
 
 
 @pytest.mark.parametrize("impl", ["pallas", "full"])
