@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch port runs on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only moonlight     # phases 1, 2 and 22 alone
 
 Phases (any failure exits non-zero; no phase catches its own failure):
 
@@ -310,6 +311,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
                compressed step profiled as in phase 6.  Its step ms, peak
                and matmul device ms and kernels are printed beside phase
                5's and phase 6's, in the ``{"remat_dots": {...}}`` line.
+ 22. moonlight — ``moonlight-16b-a3b-ep8`` at the benchmark cell's sizes
+               (9 layers, vocabulary 20,480; 970,107,392 parameters;
+               batch 4 x seq 4096): ``torch._grouped_mm`` forward and
+               backward at the held experts' shape against per-expert
+               float32 products, with no host sync; the dispatch kernels
+               (``csrc/moe_dispatch.cu``) against their plain versions on
+               a real route of the cut's router, each timed with CUDA
+               events beside its bound, its plain version and, where one
+               call computes it, the library's (``index_select``,
+               ``index_add_``), and its device time read from one
+               profiler trace; one training step under
+               ``torch.cuda.set_sync_debug_mode("error")``; two forward
+               and backward passes from one state, whose flat gradients
+               must be bitwise equal; then ``launch.train.run`` of the cut
+               through 4 warmup and 2 compressed steps (finite losses,
+               launches, step ms, peak memory).  Prints the
+               ``{"moonlight": {...}}`` line; the kernels' entries
+               (``moe_permute``, ``moe_combine``: the forward's numbers,
+               the backward's under ``backward``, that run's launches)
+               join the ``{"kernels": [...]}`` line.
 
 Launch counts are set to 0 just before each main path (training in phase
 5, each family run in phase 6b, the pipelined run in phase 6c, serving in
@@ -364,6 +385,8 @@ def head_launches(n: int) -> dict:
 
 
 NO_HEAD = head_launches(0)
+# the dropless expert layer's dispatch kernels, on no path but phase 22's
+NO_MOE = {"moe_permute": 0, "moe_combine": 0}
 # phase 3's LM-head shapes (arch, tp, rank, tokens): the main path's head
 # and internlm2-1.8b's rank-1 shard at tp 2
 HEAD_CASES = (("bert-large", 1, 0, MAIN_TOKENS),
@@ -374,7 +397,7 @@ HEAD_CASES = (("bert-large", 1, 0, MAIN_TOKENS),
 HEAD_STAT_ATOL, HEAD_S_RTOL, HEAD_DX_REL, HEAD_DW_REL = 2e-5, 2e-5, 1e-4, 1e-5
 EXPECTED_LAUNCHES = {"adam_step": 3, "ef_compress": 6, "decompress": 6,
                      "flash_attention": 0, "flash_attention_wgmma": 0,
-                     "flash_attention_wide": 0, **head_launches(6)}
+                     "flash_attention_wide": 0, **head_launches(6), **NO_MOE}
 # phase 21: the main path's model with the selective recompute
 DOTS_ARCH = "bert-large-dots"
 # block sizes beside the main path's 4096 that ef_compress must take
@@ -391,7 +414,7 @@ ZERONE = dict(var_update_interval=2, sync_double_every=2,
               sync_max_interval=2)
 ZERONE_STEPS = (3, 5)
 NO_FLASH = {"flash_attention": 0, "flash_attention_wgmma": 0,
-            "flash_attention_wide": 0}
+            "flash_attention_wide": 0, **NO_MOE}
 FAMILY_LAUNCHES = {
     "onebit_lamb": {"adam_step": 0, "ef_compress": 6, "decompress": 6,
                     **head_launches(6)},
@@ -419,7 +442,7 @@ PIPE_BUCKETS = 4
 PIPE_UNITS = (22251, 22251, 22251, 22252)
 PIPE_LAUNCHES = {"adam_step": 3, "ef_compress": 24, "decompress": 24,
                  "flash_attention": 0, "flash_attention_wgmma": 0,
-                 "flash_attention_wide": 0, **head_launches(6)}
+                 "flash_attention_wide": 0, **head_launches(6), **NO_MOE}
 PIPE = dict(pipeline=PIPE_BUCKETS, overlap_bwd="on")
 # buckets 0-2 hold stacked block leaves whose layer-0 slices land before the
 # embedding's gradient; bucket 3 holds the embedding and issues last
@@ -1707,7 +1730,7 @@ def phase_serve_main():
     peak = torch.cuda.max_memory_allocated()
     want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
             "flash_attention": 0, "flash_attention_wgmma": cfg.n_layers,
-            "flash_attention_wide": 0, **NO_HEAD}
+            "flash_attention_wide": 0, **NO_HEAD, **NO_MOE}
     if counts != want:
         raise AssertionError(f"serve launch counts {counts}, expected {want}")
     tokens = out["tokens"]
@@ -1787,7 +1810,7 @@ def phase_serve_f32() -> dict:
     peak = torch.cuda.max_memory_allocated()
     want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
             "flash_attention": cfg.n_layers, "flash_attention_wgmma": 0,
-            "flash_attention_wide": 0, **NO_HEAD}
+            "flash_attention_wide": 0, **NO_HEAD, **NO_MOE}
     if counts != want:
         raise AssertionError(f"serve-f32 launch counts {counts}, expected "
                              f"{want}")
@@ -3522,7 +3545,7 @@ def phase_tp_serve(main_stats) -> dict:
     counts = build.launch_counts()
     want = {"ef_compress": 0, "decompress": 0, "adam_step": 0,
             "flash_attention": 0, "flash_attention_wgmma": sv["layers"],
-            "flash_attention_wide": 0, **NO_HEAD}
+            "flash_attention_wide": 0, **NO_HEAD, **NO_MOE}
     if counts != want:
         raise AssertionError(f"[tp-serve] prefill launches {counts}, "
                              f"expected {want}")
@@ -3789,6 +3812,268 @@ def phase_remat_dots(stats: dict, main_x_sha: str) -> dict:
     return out
 
 
+# phase 22: the benchmark cell's cut of moonlight-16b-a3b-ep8
+MOON = dict(arch="moonlight-16b-a3b-ep8", name="moonlight-16b-a3b-ep8-cell",
+            n_layers=9, vocab=20480, batch=4, seq=4096, block_size=4096,
+            seed=0, warmup_steps=4, steps=6)
+# the kernels' sums against the plain versions' in another order: the f32
+# sums at f32 rounding, each rounded once to bf16 (one bf16 ulp, 2^-8
+# relative); the grouped products against f32 per-expert products at the
+# bf16 output rounding and a K = 2,048-long f32 accumulation
+MOON_KERNEL_TOL = dict(rtol=2 ** -7, atol=1e-5)
+MOON_GMM_REL = 1e-2
+
+
+def _moon_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    return register(dataclasses.replace(
+        get_config(MOON["arch"]), name=MOON["name"],
+        n_layers=MOON["n_layers"], vocab=MOON["vocab"]))
+
+
+def phase_moonlight() -> dict:
+    """22: see the module doc."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.kernels.moe_dispatch import ref as MR
+    from repro_torch.launch.train import run
+    from repro_torch.models import mlp as M
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import get_optimizer
+    from repro_torch.perf import kernel_cost
+    from repro_torch.train.step import flat_grads, init_train_state, \
+        train_step
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.configs.base import InputShape
+    cfg = _moon_cfg()
+    dev = torch.device("cuda")
+    out = {"parameters": cfg.param_count()}
+    t, k, d = MOON["batch"] * MOON["seq"], cfg.moe_top_k, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(MOON["seed"])
+    # (a) a real route: the router of a layer on normed random rows
+    router = torch.randn(d, cfg.n_experts, generator=gen, device=dev) * 0.02
+    x = torch.randn(t, d, generator=gen, device=dev).to(torch.bfloat16)
+    rt = M.route(x, router, torch.zeros(cfg.n_experts, device=dev), cfg)
+    filled = int(rt.offs[-1])
+    tokens = int((rt.slot >= 0).any(dim=1).sum())
+    out["route"] = {"filled": filled, "tokens": tokens,
+                    "counts": rt.counts.tolist()}
+    log(f"[moonlight] route: {filled} of {t * k} rows to the "
+        f"{cfg.n_held} held experts ({tokens} tokens), counts "
+        f"{rt.counts.tolist()}")
+    # (b) the grouped products at the held experts' shape
+    f = cfg.moe_ff
+    w = (torch.randn(cfg.n_held, d, f, generator=gen, device=dev)
+         * d ** -0.5).requires_grad_(True)
+    xp = torch.randn(t * k, d, generator=gen, device=dev) \
+        .to(torch.bfloat16).requires_grad_(True)
+    cot = torch.randn(t * k, f, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = torch._grouped_mm(xp, w.to(torch.bfloat16), offs=rt.offs)
+        y.backward(cot)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ends = rt.offs.tolist()
+    gmm = {}
+    for e, (a, b) in enumerate(zip([0] + ends[:-1], ends)):
+        wb = w[e].detach().to(torch.bfloat16).float()
+        for name, got, want in (
+                ("fwd", y[a:b].detach().float(),
+                 xp[a:b].detach().float() @ wb),
+                ("dw", w.grad[e], xp[a:b].detach().float().t()
+                 @ cot[a:b].float()),
+                ("dx", xp.grad[a:b].float(), cot[a:b].float() @ wb.t())):
+            rel = float((got - want).norm() / want.norm().clamp(min=1e-30))
+            gmm[name] = max(gmm.get(name, 0.0), rel)
+    if max(gmm.values()) > MOON_GMM_REL or not torch.isfinite(w.grad).all():
+        raise AssertionError(f"grouped mm relative errors {gmm}")
+    xd = xp.detach()
+    wd = w.detach().to(torch.bfloat16)
+    gmm_ms = time_ms(lambda: torch._grouped_mm(xd, wd, offs=rt.offs))
+    out["grouped_mm"] = dict(rel=gmm, fwd_ms=gmm_ms,
+                             tflops=2 * filled * d * f / gmm_ms / 1e9)
+    log(f"[moonlight] grouped mm: no host sync; worst relative error "
+        f"{gmm}; forward {gmm_ms:.3f} ms, "
+        f"{out['grouped_mm']['tflops']:.0f} TFLOP/s")
+    del w, xp, cot, y, xd, wd
+    # (c) the dispatch kernels against their plain versions
+    g = rt.gates.detach().contiguous()
+    dxp = torch.randn(t * k, d, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    ye = torch.randn(t * k, d, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(t, d, generator=gen, device=dev).to(torch.bfloat16)
+    live = rt.pair >= 0
+    checks, errs = {}, {}
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+    xp = MK.moe_permute(x, rt.pair, k)
+    checks["permute"] = bool(torch.equal(xp[live],
+                                         MR.permute(x, rt.pair, k)[live]))
+    errs["permute"] = err(xp[live], MR.permute(x, rt.pair, k)[live])
+    for name, got, want in (
+            ("permute_bwd", MK.moe_permute(dxp, rt.slot, k, backward=True),
+             MR.permute_backward(dxp, rt.slot)),
+            ("combine", MK.moe_combine(ye, g, rt.slot, k),
+             MR.combine(ye, g, rt.slot))):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **MOON_KERNEL_TOL)
+        checks[name] = float((got == want).float().mean())
+        errs[name] = err(got, want)
+    dye, dg = MK.moe_combine(ye, g, rt.pair, k, dy=dy)
+    dye_r, dg_r = MR.combine_backward(dy, ye, g, rt.pair, k)
+    torch.testing.assert_close(dye[live].float(), dye_r[live].float(),
+                               **MOON_KERNEL_TOL)
+    torch.testing.assert_close(dg, dg_r, rtol=1e-4, atol=1e-4)
+    checks["combine_bwd_dye"] = float((dye[live] == dye_r[live]).float()
+                                      .mean())
+    errs["combine_bwd"] = max(err(dye[live], dye_r[live]), err(dg, dg_r))
+    if not checks["permute"]:
+        raise AssertionError("moe_permute: the filled rows are not the "
+                             "tokens' rows")
+    hbm = 3.35e12
+    size = dict(t=t, k=k, d=d, itemsize=2, filled=filled, tokens=tokens)
+    bound = {name: fn(backward=bwd, **size).hbm_bytes
+             for name, fn, bwd in (
+                 ("permute", kernel_cost.moe_permute_cost, False),
+                 ("permute_bwd", kernel_cost.moe_permute_cost, True),
+                 ("combine", kernel_cost.moe_combine_cost, False),
+                 ("combine_bwd", kernel_cost.moe_combine_cost, True))}
+    timed = {"permute": lambda: MK.moe_permute(x, rt.pair, k),
+             "permute_bwd": lambda: MK.moe_permute(dxp, rt.slot, k,
+                                                   backward=True),
+             "combine": lambda: MK.moe_combine(ye, g, rt.slot, k),
+             "combine_bwd": lambda: MK.moe_combine(ye, g, rt.pair, k,
+                                                   dy=dy)}
+    plain = {"permute": lambda: MR.permute(x, rt.pair, k),
+             "permute_bwd": lambda: MR.permute_backward(dxp, rt.slot),
+             "combine": lambda: MR.combine(ye, g, rt.slot),
+             "combine_bwd": lambda: MR.combine_backward(dy, ye, g, rt.pair,
+                                                        k)}
+    # one library call each where one computes the result: the gather of
+    # the filled rows (the front of the buffer), and torch's scatter-add
+    # of them back (float atomics, in an order that varies); the combine
+    # has none (a gather, a product by the gates and a sum: three calls)
+    tok = torch.div(rt.pair[:filled].long(), k, rounding_mode="floor")
+    library = {"permute": lambda: x.index_select(0, tok),
+               "permute_bwd": lambda: torch.zeros(
+                   t, d, dtype=dxp.dtype, device=dev).index_add_(
+                       0, tok, dxp[:filled])}
+    kern = {}
+    for name, fn in timed.items():
+        ms = time_ms(fn)
+        b_ms = bound[name] / hbm * 1e3
+        kern[name] = dict(ms=ms, bound_ms=b_ms,
+                          roofline_pct=100 * b_ms / ms,
+                          plain_ms=time_ms(plain[name]),
+                          library_ms=(time_ms(library[name])
+                                      if name in library else None),
+                          max_abs_err=errs[name])
+        log(f"[moonlight] {name}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({100 * b_ms / ms:.1f} %), plain {kern[name]['plain_ms']:.4f}"
+            f" ms, library {kern[name]['library_ms']} ms")
+    # each kernel's device time alone, from one profiler trace
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    reps = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in timed.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    symbol = {"permute": "moe_permute_fwd", "permute_bwd": "moe_permute_bwd",
+              "combine": "moe_combine_fwd", "combine_bwd": "moe_combine_bwd"}
+    for name, sym in symbol.items():
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and sym in e.name]
+        kern[name]["device_ms"] = (sum(us) / reps / 1e3
+                                   if len(us) == reps else None)
+        log(f"[moonlight] {name}: device {kern[name]['device_ms']} ms "
+            f"({len(us)} launches traced of {reps})")
+    out["dispatch"] = dict(checks=checks, kernels=kern)
+    del xp, dxp, ye, dy, dye, dg, dye_r, dg_r, x, g, tok
+    torch.cuda.empty_cache()
+    # (d) one step under the sync check, and two passes from one state
+    opt = get_optimizer("onebit_adam", compressor="onebit",
+                        compressor_kwargs={"block_size": MOON["block_size"]})
+    params = init_params(cfg, torch.Generator().manual_seed(MOON["seed"]),
+                         dev)
+    ts = init_train_state(cfg, params, opt, MOON["block_size"], 1, dev)
+    del params
+    stream = SyntheticStream(cfg, InputShape("t", MOON["seq"],
+                                             MOON["batch"], "train"),
+                             seed=MOON["seed"], device=dev)
+    batch, second = stream.batch_at(0), stream.batch_at(1)
+    train_step(ts, opt, batch, 1e-4, "warmup")      # the first, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        met = train_step(ts, opt, second, 1e-4, "warmup")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["sync_free_step"] = True
+    out["step_loss"] = float(met["loss"])
+    g1 = flat_grads(ts, batch)[0].clone()
+    g2 = flat_grads(ts, batch)[0]
+    out["bitwise_grads"] = bool(torch.equal(g1, g2))
+    log(f"[moonlight] one warmup step under set_sync_debug_mode('error'): "
+        f"no host sync, loss {out['step_loss']:.4f}; two passes from one "
+        f"state bitwise equal: {out['bitwise_grads']}")
+    if not out["bitwise_grads"] or not math.isfinite(out["step_loss"]):
+        raise AssertionError("moonlight: gradients of two passes differ "
+                             "or the loss is not finite")
+    del ts, opt, g1, g2, batch, second, stream, met
+    torch.cuda.empty_cache()
+    # (e) the cut through the launcher, both stages
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = run(arch=MOON["name"], steps=MOON["steps"],
+              warmup_steps=MOON["warmup_steps"], batch=MOON["batch"],
+              seq=MOON["seq"], block_size=MOON["block_size"], lr=4e-4,
+              seed=MOON["seed"], verbose=True)
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    out["run"] = dict(losses=losses, stages=[h["stage"] for h in hist],
+                      ms=[h.get("ms") for h in hist],
+                      launches=res["launches"],
+                      peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[moonlight] run: losses {losses}, step ms "
+        f"{out['run']['ms']}, peak {out['run']['peak_bytes']} bytes, "
+        f"launches {res['launches']}")
+    n_moe = cfg.n_layers - cfg.n_dense_lead
+    if not all(math.isfinite(v) for v in losses) or \
+            out["run"]["stages"] != ["warmup"] * 4 + ["compressed"] * 2 or \
+            res["launches"]["moe_permute"] != 3 * n_moe * MOON["steps"] or \
+            res["launches"]["moe_combine"] != 3 * n_moe * MOON["steps"]:
+        raise AssertionError(f"moonlight run: {out['run']}")
+    # the entries of the {"kernels": [...]} line: the forward's numbers at
+    # the top, the backward's under "backward"; one counter a name counts
+    # both directions (forward, its recompute, backward: 3 a MoE layer
+    # and step)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err")
+    out["kernels"] = [dict(
+        {k2: kern[fwd][k2] for k2 in keys}, name=name, route="cuda",
+        source="src/repro_torch/csrc/moe_dispatch.cu", replaces=None,
+        ok=True, bound_by="bytes", kernel_ms=kern[fwd]["ms"],
+        backward={k2: kern[fwd + "_bwd"][k2] for k2 in keys},
+        library=lib, launches=res["launches"][name],
+        launches_per_step=3 * n_moe)
+        for name, fwd, lib in (
+            ("moe_permute", "permute",
+             "index_select (forward), index_add_ (backward)"),
+            ("moe_combine", "combine", None))]
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3802,6 +4087,12 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     phase_build()
+    if sys.argv[1:] == ["--only", "moonlight"]:
+        moonlight = phase_moonlight()
+        print(json.dumps({"moonlight": moonlight}))
+        print(json.dumps({"kernels": moonlight["kernels"]}))
+        print(card)
+        return 0
     d_pad = flat_dim(get_config(MAIN["arch"]), 1, MAIN["block_size"])
     log(f"[kernels] main-path d_pad = {d_pad}")
     entries = phase_kernels(d_pad, MAIN["block_size"])
@@ -3852,6 +4143,8 @@ def main() -> int:
     tp_serve = phase_tp_serve(stats)
     torch.cuda.empty_cache()
     overlap_bwd = phase_overlap_bwd()
+    torch.cuda.empty_cache()
+    moonlight = phase_moonlight()
     for e in entries:
         e["launches"] = counts[e["name"]]
         e["launches_family"] = {tag: f["launches"][e["name"]]
@@ -3888,6 +4181,9 @@ def main() -> int:
              for k, c in vision["claims"].items()},
             **{f"cifar_{k}": c["launches"][e["name"]]
                for k, c in vision["cifar"].items()})
+    # the dispatch kernels run in phase 22 alone (no other path has a
+    # dropless expert layer); their launches are that phase's
+    entries.extend(moonlight["kernels"])
     print(json.dumps({"main_path": stats}))
     print(json.dumps({"family_path": {k: v for k, v in family.items()
                                       if k != "pipeline"}}))
@@ -3905,6 +4201,7 @@ def main() -> int:
     print(json.dumps({"tp_serve": tp_serve}))
     print(json.dumps({"overlap_bwd": overlap_bwd}))
     print(json.dumps({"remat_dots": remat_dots}))
+    print(json.dumps({"moonlight": moonlight}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

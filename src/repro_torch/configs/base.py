@@ -22,6 +22,11 @@ from typing import Dict, Optional
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "encoder")
 ATTN_IMPLS = ("auto", "full", "chunked", "pallas")
 MOE_DISPATCH = ("einsum", "gather")
+# "capacity": the reference's softmax-routed layer with a capacity;
+# "dropless": DeepSeek-V3's sigmoid-routed layer (selection bias,
+# renormalised and scaled gates, shared experts, the experts this chip
+# holds)
+MOE_KINDS = ("capacity", "dropless")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +63,26 @@ class ArchConfig:
     # "einsum": one-hot (t, capacity) dispatch matmuls;
     # "gather": index dispatch and scatter-add
     moe_dispatch: str = "einsum"
+    # DeepSeek-V3's expert layer (``moe_kind="dropless"``): the expert
+    # width (0: d_ff), the shared experts (one SwiGLU of
+    # n_shared_experts * moe_d_ff on every token), the scale of the
+    # renormalised gates, and the experts this chip holds: experts
+    # expert_first .. expert_first + experts_held - 1 (0: all of them)
+    moe_kind: str = "capacity"
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    moe_gate_scale: float = 1.0
+    experts_held: int = 0
+    expert_first: int = 0
+    # leading dense layers before the MoE layers (first_k_dense_replace)
+    n_dense_lead: int = 0
+    # multi-head latent attention (DeepSeek-V2/V3) when kv_lora_rank > 0:
+    # the latent width, and per head the q/k dims without and with rope
+    # and the v dims
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
     # SSM (Mamba-1)
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -96,6 +121,26 @@ class ArchConfig:
             raise ValueError("d_model must split over the heads")
         if self.moe_dispatch not in MOE_DISPATCH:
             raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}")
+        if self.moe_kind not in MOE_KINDS:
+            raise ValueError(f"unknown moe_kind {self.moe_kind!r}")
+        if self.expert_first + self.n_held > self.n_experts:
+            raise ValueError(f"experts {self.expert_first} .. "
+                             f"{self.expert_first + self.n_held - 1} are "
+                             f"not among the {self.n_experts}")
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def n_held(self) -> int:
+        """Routed experts this chip holds of each MoE layer."""
+        return self.experts_held or self.n_experts
+
+    @property
+    def moe_ff(self) -> int:
+        """An expert's width."""
+        return self.moe_d_ff or self.d_ff
 
     @property
     def head_dim(self) -> int:
@@ -127,7 +172,7 @@ class ArchConfig:
         return (i % self.attn_every) == self.attn_every // 2
 
     def is_moe_layer(self, i: int) -> bool:
-        return self.n_experts > 0 and \
+        return self.n_experts > 0 and i >= self.n_dense_lead and \
             (i % self.moe_every) == self.moe_every - 1
 
     @property
@@ -143,20 +188,38 @@ class ArchConfig:
         return sum(math.prod(s) for _, s in global_leaf_shapes(self, tp))
 
     def active_param_count(self, tp: int = 1) -> int:
-        """Parameters touched a token (MoE: only the top_k experts)."""
+        """Parameters touched a token (MoE: only the top_k experts of the
+        ones held)."""
         total = self.param_count(tp)
         if not self.n_experts:
             return total
         n_moe = sum(self.is_moe_layer(i) for i in range(self.n_layers))
-        expert_params = n_moe * self.n_experts * 3 * self.d_model * self.d_ff
-        active = n_moe * self.moe_top_k * 3 * self.d_model * self.d_ff
-        return total - expert_params + active
+        one = 3 * self.d_model * self.moe_ff
+        return total - n_moe * max(self.n_held - self.moe_top_k, 0) * one
 
     def reduced(self) -> "ArchConfig":
         """The CPU-smoke variant: 2 layers (a hybrid: one attn_every
         period), d_model 256, <= 4 heads, <= 4 experts, top-k <= 2, a
-        16-patch prefix."""
+        16-patch prefix.  A dropless MLA arch keeps its mechanism: its
+        leading dense layers and two MoE layers, 16 experts (the same
+        share of them held) top-4 of width 64, and the latent attention
+        at rank 64 with q/k heads of 32 + 16 dims and v heads of 32."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        if self.moe_kind == "dropless":
+            n_exp = min(self.n_experts, 16)
+            return dataclasses.replace(
+                self, name=self.name + "-smoke",
+                n_layers=self.n_dense_lead + 2, d_model=256,
+                n_heads=n_heads, n_kv_heads=n_heads, d_ff=512, vocab=512,
+                n_experts=n_exp, moe_top_k=min(self.moe_top_k, 4),
+                moe_d_ff=64,
+                experts_held=self.experts_held * n_exp // self.n_experts,
+                expert_first=self.expert_first * n_exp // self.n_experts,
+                kv_lora_rank=64 if self.is_mla else 0,
+                qk_nope_dim=32 if self.is_mla else 0,
+                qk_rope_dim=16 if self.is_mla else 0,
+                v_head_dim=32 if self.is_mla else 0,
+                compute_dtype="float32", attn_chunk=64)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",

@@ -70,6 +70,14 @@ _SIGNATURES = {
     "repro_lm_head_xent_dw": ((_P, ctypes.c_int, _I64, _I64, _I64, _I64, _P,
                                _I64, _I64, _I64, _P, _I64, ctypes.c_int, _I64,
                                _P), ctypes.c_int),
+    "repro_moe_permute": ((_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P),
+                          ctypes.c_int),
+    "repro_moe_permute_bwd": ((_P, _P, _P, _I64, _I64, _I64, ctypes.c_int,
+                               _P), ctypes.c_int),
+    "repro_moe_combine": ((_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int,
+                           _P), ctypes.c_int),
+    "repro_moe_combine_bwd": ((_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                               ctypes.c_int, _P), ctypes.c_int),
     "repro_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 
@@ -77,7 +85,8 @@ _LAUNCHES: Dict[str, int] = {"ef_compress": 0, "decompress": 0,
                              "adam_step": 0, "flash_attention": 0,
                              "flash_attention_wgmma": 0,
                              "flash_attention_wide": 0,
-                             "lm_head_xent_fwd": 0, "lm_head_xent_bwd": 0}
+                             "lm_head_xent_fwd": 0, "lm_head_xent_bwd": 0,
+                             "moe_permute": 0, "moe_combine": 0}
 _LIB: Optional[ctypes.CDLL] = None
 _RECORDERS: List[List[Tuple[str, object]]] = []
 

@@ -24,6 +24,18 @@ Prefill (``attn_forward``) takes one of the reference's paths by
     causal model whose length the chunk divides, else ``"full"``;
   * ``"auto"``: ``"chunked"`` past S = 4 * attn_chunk, else ``"full"``.
 
+Multi-head latent attention (``mla_forward``, DeepSeek-V2/V3's MLA; a
+``cfg.is_mla`` arch, tp 1 only): q = x wq gives each head ``qk_nope_dim``
+dims without rope and ``qk_rope_dim`` with; [c_kv, k_pe] = x wkva gives
+the ``kv_lora_rank``-wide latent and one rope head shared by every head;
+c_kv goes through an RMSNorm (``norm_kv``) and [k_nope, v] = c_kv wkvb
+gives each head its k dims without rope and its ``v_head_dim`` v dims.
+Rope acts on the rope dims alone (the half-split convention of
+``apply_rope``); the scores are q.k over the nope + rope dims, scaled by
+1 / sqrt(qk_nope_dim + qk_rope_dim), through the same ``_sdpa`` /
+``_sdpa_chunked`` paths, and the heads' v outputs are projected back by
+wo.  It has no decode cache.
+
 Decode (``decode_attn``) writes the new token's k/v into the cache in
 place (the reference returns an updated copy; the port saves the copy)
 and attends over the cache in f32.  Under tensor parallelism the cache
@@ -47,7 +59,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attn import ops as fa
 from repro_torch.models.common import (NO_TP, ParallelCtx, apply_rope,
                                        dense, f_reduce, g_copy,
-                                       grouped_param, rope_tables)
+                                       grouped_param, rms_norm, rope_tables)
+from repro_torch.obs.trace import MLA_SPAN, scope
 
 NEG_INF = -1e30
 
@@ -133,9 +146,10 @@ def _sdpa_chunked(q, k, v, q_offset: int, window: Optional[int],
                   chunk: int) -> torch.Tensor:
     """Causal online softmax over KV chunks (the flash-attention schedule
     in plain torch, f32): O(Sq * chunk) scores at a time instead of
-    O(Sq * Skv).  q: (B,Sq,H,hd), k/v: (B,Skv,H,hd), Skv a multiple of
-    ``chunk``."""
+    O(Sq * Skv).  q, k: (B,Sq|Skv,H,hd), v: (B,Skv,H,vd), Skv a multiple
+    of ``chunk``."""
     b, sq, h, hd = q.shape
+    vd = v.shape[-1]
     skv = k.shape[1]
     if skv % chunk:
         raise ValueError(f"{skv} keys do not split into chunks of {chunk}")
@@ -144,7 +158,7 @@ def _sdpa_chunked(q, k, v, q_offset: int, window: Optional[int],
     qi = torch.arange(sq, device=dev)[:, None] + q_offset
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
-    o = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, h, sq, vd), dtype=torch.float32, device=dev)
     for i in range(skv // chunk):
         kb = k[:, i * chunk:(i + 1) * chunk].to(torch.float32)
         vb = v[:, i * chunk:(i + 1) * chunk].to(torch.float32)
@@ -161,7 +175,26 @@ def _sdpa_chunked(q, k, v, q_offset: int, window: Optional[int],
         o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
     out = o / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)                 # (b,sq,h,hd)
+    return out.transpose(1, 2).to(q.dtype)                 # (b,sq,h,vd)
+
+
+def _attend(q, k, v, cfg: ArchConfig) -> torch.Tensor:
+    """The training / prefill attention core on (B, S, H, D) q, k, v by
+    ``cfg.attn_impl`` (see the module doc)."""
+    s = q.shape[1]
+    use_chunked = (cfg.attn_impl == "chunked" or
+                   (cfg.attn_impl == "auto" and s > 4 * cfg.attn_chunk))
+    if cfg.attn_impl == "pallas":
+        return fa.flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=cfg.causal,
+            window=cfg.window).transpose(1, 2)
+    if use_chunked and s % cfg.attn_chunk == 0 and cfg.causal:
+        return _sdpa_chunked(q, k, v, 0, cfg.window, cfg.attn_chunk)
+    mask = None
+    if cfg.causal or cfg.window is not None:
+        mask = _causal_mask(s, s, 0, cfg.window, cfg.causal, q.device)
+    return _sdpa(q, k, v, mask)
 
 
 def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
@@ -195,27 +228,58 @@ def attn_forward(p, x: torch.Tensor, cfg: ArchConfig,
     positions = torch.arange(s, device=x.device)[None, :]
     q, k0, v0 = _qkv(p, x, cfg, positions, ctx, skip_gcopy=outer == "none")
     n_rep = hq // hkv
-    k, v = _repeat_kv(k0, n_rep), _repeat_kv(v0, n_rep)
-    use_chunked = (cfg.attn_impl == "chunked" or
-                   (cfg.attn_impl == "auto" and s > 4 * cfg.attn_chunk))
-    if cfg.attn_impl == "pallas":
-        o = fa.flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=cfg.causal,
-            window=cfg.window).transpose(1, 2)
-    elif use_chunked and s % cfg.attn_chunk == 0 and cfg.causal:
-        o = _sdpa_chunked(q, k, v, 0, cfg.window, cfg.attn_chunk)
-    else:
-        mask = None
-        if cfg.causal or cfg.window is not None:
-            mask = _causal_mask(s, s, 0, cfg.window, cfg.causal, x.device)
-        o = _sdpa(q, k, v, mask)
+    o = _attend(q, _repeat_kv(k0, n_rep), _repeat_kv(v0, n_rep), cfg)
     out = dense(o.reshape(b, s, hq * cfg.head_dim), p["wo"])
     if outer != "none":
         out = f_reduce(out, ctx)
     if return_kv:
         return out, (k0, v0)
     return out
+
+
+# --- multi-head latent attention ----------------------------------------
+
+# the dim of each MLA leaf split over the model axis (MLA runs at tp 1)
+MLA_SPECS = {"norm_kv": None, "wkva": None, "wkvb": 1, "wo": 0, "wq": 1}
+
+
+def mla_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of one MLA layer's leaves."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {"wq": (d, h * (nope + rope)), "wkva": (d, r + rope),
+            "norm_kv": (r,), "wkvb": (r, h * (nope + vd)),
+            "wo": (h * vd, d)}
+
+
+def mla_param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
+    return dict(MLA_SPECS)
+
+
+def mla_forward(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Multi-head latent attention (see the module doc). x: (B, S, d) ->
+    (B, S, d), inside a ``model.mla`` range (tracing on)."""
+    if cfg.attn_impl == "pallas":
+        raise ValueError(f"{cfg.name}: MLA's q/k heads ({cfg.qk_nope_dim} "
+                         f"+ {cfg.qk_rope_dim}) and v heads "
+                         f"({cfg.v_head_dim}) have no flash route")
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    with scope(MLA_SPAN):
+        cos, sin = rope_tables(torch.arange(s, device=x.device)[None, :],
+                               rope, cfg.rope_theta)
+        q_nope, q_pe = dense(x, p["wq"]).reshape(b, s, h, nope + rope) \
+            .split([nope, rope], dim=-1)
+        c_kv, k_pe = dense(x, p["wkva"]).split([r, rope], dim=-1)
+        k_nope, v = dense(rms_norm(c_kv, p["norm_kv"], cfg.norm_eps),
+                          p["wkvb"]).reshape(b, s, h, nope + vd) \
+            .split([nope, vd], dim=-1)
+        k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)   # one head
+        q = torch.cat([q_nope, apply_rope(q_pe, cos, sin)], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(b, s, h, rope)], dim=-1)
+        o = _attend(q, k, v, cfg)
+        return dense(o.reshape(b, s, h * vd), p["wo"])
 
 
 # --- decode with KV cache -----------------------------------------------

@@ -35,19 +35,46 @@ Two dispatches compute the same layer:
 
 The auxiliary loss is the Switch load-balance term ``E * sum_e frac_e *
 mean p_e`` over the top-1 choices.
+
+The dropless layer (``dropless_moe_forward``, ``cfg.moe_kind ==
+"dropless"``: DeepSeek-V3's, tp 1) holds experts ``expert_first ..
+expert_first + n_held - 1`` of ``n_experts`` (the chip's share of an
+expert-parallel deployment) and computes their part of the layer; its
+router keeps every expert and its top-k.  In float32: s = sigmoid(x
+router), the top k of s + b chosen, ties by the larger logit (b the
+layer's selection bias, a buffer outside the flat parameters: zero, and
+never updated here, as in DeepSeek-V3's last phase, whose bias update
+speed is 0), the gates the chosen s over their sum, times
+``moe_gate_scale``.  No token is dropped:
+each (token, choice) whose expert is held takes a row of a static buffer
+of T * k rows, in expert order and token order within an expert, all
+computed on the device (``route``).  The held experts' SwiGLUs are
+grouped products over the filled rows (``torch._grouped_mm`` with the
+rows' end offsets), the rows move through ``kernels.moe_dispatch``
+(permute, and the gated combine in choice order) and the shared experts,
+one SwiGLU of ``n_shared_experts * moe_d_ff``, see every token whole.
+Its auxiliary loss is DeepSeek-V3's sequence-wise balance term, a
+sequence's ``sum_e f_e P_e`` averaged over the batch, with f_e = E /
+(k S) times the sequence's tokens routed to e and P_e the mean over the
+sequence of s_e / sum_j s_j (the chosen experts stand for the paper's
+top k of s, which they are while b is zero).  Nothing in it reads the
+device from the host.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.moe_dispatch import ops as dispatch
 from repro_torch.models.common import (NO_TP, ParallelCtx, dense, f_reduce,
                                        g_copy, pmean, rep_param, sp_gather,
                                        tp_rank)
+from repro_torch.obs.trace import (DISPATCH_SPAN, MOE_SPAN, count_device,
+                                   scope, tracing_enabled)
 
 # the dim of each leaf split over the model axis (None: replicated)
 MLP_SPECS = {"wg": 1, "wu": 1, "wd": 0}
@@ -226,3 +253,127 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig,
     if outer == "none":
         aux = pmean(aux, ctx)
     return out.reshape(b, s, d), aux
+
+
+# --------------------------------------------------------------------------
+# the dropless layer (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+# the dim of each leaf split over the model axis (the layer runs at tp 1)
+DROPLESS_SPECS = {"router": None, "shared_wd": 0, "shared_wg": 1,
+                  "shared_wu": 1, "wd": 0, "wg": 0, "wu": 0}
+
+
+def dropless_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of one dropless layer's leaves: the router over every
+    expert, the held experts' stacks, the shared experts' SwiGLU."""
+    d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_held
+    out = {"router": (d, cfg.n_experts), "wg": (e, d, f), "wu": (e, d, f),
+           "wd": (e, f, d)}
+    fs = cfg.n_shared_experts * f
+    if fs:
+        out.update(shared_wg=(d, fs), shared_wu=(d, fs), shared_wd=(fs, d))
+    return out
+
+
+def dropless_param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
+    return {k: DROPLESS_SPECS[k] for k in dropless_shapes(cfg)}
+
+
+class Route(NamedTuple):
+    """Where a batch's (token, choice) pairs go: ``gates`` (T, k) f32
+    (differentiable), ``chosen`` (T, k) the experts, ``scores`` (T, E) the
+    sigmoid scores, ``pair`` (T * k,) int32 the pair ``t * k + j`` in each
+    row of the routed buffer (-1: empty), ``slot`` (T, k) int32 the row of
+    each pair (-1: its expert is held elsewhere), ``counts`` and ``offs``
+    (n_held,) the rows of each held expert and their running sum."""
+    gates: torch.Tensor
+    chosen: torch.Tensor
+    scores: torch.Tensor
+    pair: torch.Tensor
+    slot: torch.Tensor
+    counts: torch.Tensor
+    offs: torch.Tensor
+
+
+def choose(key: torch.Tensor, logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The k largest of ``key`` (T, E) in each row, largest first, ties
+    broken by the larger logit: s rounds to 1.0 in float32 above a logit of
+    ~16.6, and the logit keeps the order of the unrounded s (topk's own
+    tie-break, the lower expert index, would hand every such token to the
+    lowest experts)."""
+    by_logit = torch.argsort(logits, dim=-1, descending=True, stable=True)
+    o = torch.argsort(key.gather(1, by_logit), dim=-1, descending=True,
+                      stable=True)
+    return by_logit.gather(1, o[:, :k])
+
+
+def route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+          cfg: ArchConfig) -> Route:
+    """The dropless layer's routing of x (T, d) on the device (see the
+    module doc): the expert order is a stable sort of the held experts'
+    indices, so the rows of one expert keep their token order."""
+    t, k, e_h = x.shape[0], cfg.moe_top_k, cfg.n_held
+    dev = x.device
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    scores = torch.sigmoid(logits)
+    chosen = choose(scores.detach() + bias, logits.detach(), k)
+    g = scores.gather(1, chosen)
+    gates = g / (g.sum(dim=-1, keepdim=True) + 1e-20) * cfg.moe_gate_scale
+    local = chosen - cfg.expert_first
+    held = ((local >= 0) & (local < e_h)).reshape(-1)
+    key = torch.where(held, local.reshape(-1), e_h)
+    order = torch.argsort(key, stable=True)
+    counts = (key[:, None] == torch.arange(e_h, device=dev)).sum(dim=0)
+    offs = torch.cumsum(counts, dim=0).to(torch.int32)
+    rows = torch.arange(t * k, device=dev)
+    pair = torch.where(rows < offs[-1], order, -1).to(torch.int32)
+    slot = torch.empty_like(order).scatter_(0, order, rows)
+    slot = torch.where(held, slot, -1).to(torch.int32).view(t, k)
+    return Route(gates, chosen, scores, pair, slot, counts, offs)
+
+
+def _grouped(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
+             ) -> torch.Tensor:
+    """Rows ``offs[e-1] .. offs[e]`` of x times expert e's w, in x's
+    dtype; rows past ``offs[-1]`` are left undefined."""
+    return torch._grouped_mm(x, w.to(x.dtype), offs=offs)
+
+
+def seq_balance_loss(rt: Route, b: int, cfg: ArchConfig) -> torch.Tensor:
+    """DeepSeek-V3's sequence-wise balance term of one layer (see the
+    module doc), f32 scalar."""
+    e, k = cfg.n_experts, cfg.moe_top_k
+    s = rt.scores.shape[0] // b
+    hit = torch.zeros_like(rt.scores).scatter_(1, rt.chosen, 1.0)
+    f = hit.view(b, s, e).sum(dim=1) * (e / (k * s))
+    p = (rt.scores / rt.scores.sum(dim=-1, keepdim=True)).view(b, s, e)
+    return (f * p.mean(dim=1)).sum(dim=-1).mean()
+
+
+def dropless_moe_forward(p, x: torch.Tensor, cfg: ArchConfig,
+                         bias: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> ((B, S, d), aux): the held experts' gated part of
+    the layer plus the shared experts, and the balance term; inside a
+    ``model.moe`` range, the route and the dispatch kernels inside
+    ``model.moe.dispatch`` (tracing on)."""
+    b, s, d = x.shape
+    k = cfg.moe_top_k
+    with scope(MOE_SPAN):
+        x2 = x.reshape(b * s, d)
+        with scope(DISPATCH_SPAN):
+            rt = route(x2, p["router"], bias, cfg)
+            xp = dispatch.permute(x2, rt.pair, rt.slot, k)
+        h = F.silu(_grouped(xp, p["wg"], rt.offs)) \
+            * _grouped(xp, p["wu"], rt.offs)
+        ye = _grouped(h, p["wd"], rt.offs)
+        with scope(DISPATCH_SPAN):
+            y = dispatch.combine(ye, rt.gates, rt.pair, rt.slot, k)
+        if "shared_wg" in p:
+            y = y + dense(F.silu(dense(x2, p["shared_wg"]))
+                          * dense(x2, p["shared_wu"]), p["shared_wd"])
+        if tracing_enabled():       # no counting kernel with tracing off
+            count_device("moe.rows", rt.offs[-1])
+            count_device("moe.max_rows", rt.counts.max(), op="max")
+        return y.view(b, s, d), seq_balance_loss(rt, b, cfg)

@@ -16,6 +16,15 @@ holds every parameter at the same offset as the reference's flat vector,
 and the 4096-element scale blocks of the compressor cover the same
 elements.
 
+The port's DeepSeek-V3 archs (``moonlight-16b-a3b``; the reference has
+none) lead with ``n_dense_lead`` dense layers, stacked under
+``blocks.first`` (which sorts before ``blocks.l0``), before the superblocks
+of MLA (``"mla"``: ``models.attention.mla_forward``) and the dropless
+expert layer (``"dropless"``: ``models.mlp.dropless_moe_forward``); each
+such expert layer keeps its selection bias as a buffer of its
+:class:`Block`, outside the flat vector.  They run at tp = 1 only, and do
+not serve (there is no latent KV cache).
+
 Tensor parallelism: the reference's global tree depends on tp (q heads
 padded to a multiple of tp, the vocab to a multiple of 8 * tp, kv heads
 repeated when n_kv < tp, MoE ff slices when E < tp; ``global_leaf_shapes``)
@@ -81,32 +90,56 @@ from repro_torch.models.common import (MODEL_AXIS, NO_TP, ParallelCtx,
                                        rms_norm, save_dots,
                                        sp_gather, sp_scatter, sp_slice,
                                        tp_rank)
-from repro_torch.models.mlp import mlp_forward, moe_forward
+from repro_torch.models.mlp import (dropless_moe_forward, mlp_forward,
+                                    moe_forward)
 from repro_torch.obs.trace import BLOCK_SPAN, count_collective, scope
 
 Shapes = List[Tuple[str, Tuple[int, ...]]]
 
 
+def _attn_kind(cfg: ArchConfig) -> str:
+    return "mla" if cfg.is_mla else "attn"
+
+
 def superblock_layout(cfg: ArchConfig) -> List[Tuple[str, Optional[str]]]:
     """(mixer, ffn) of each layer of one superblock: ``("ssm", None)`` for
     the SSM; ``attn_every`` layers for the hybrid (attention where
-    ``is_attn_layer``, MoE where ``is_moe_layer``); ``("attn", "moe" |
-    "dense")`` otherwise."""
+    ``is_attn_layer``, MoE where ``is_moe_layer``); ``("attn" | "mla",
+    "moe" | "dropless" | "dense")`` otherwise."""
     if cfg.family == "ssm":
         return [("ssm", None)]
     if cfg.family == "hybrid":
         return [("attn" if cfg.is_attn_layer(i) else "ssm",
                  "moe" if cfg.is_moe_layer(i) else "dense")
                 for i in range(cfg.attn_every)]
-    return [("attn", "moe" if cfg.n_experts else "dense")]
+    if not cfg.n_experts:
+        return [(_attn_kind(cfg), "dense")]
+    return [(_attn_kind(cfg), "dropless" if cfg.moe_kind == "dropless"
+                               else "moe")]
+
+
+def lead_layout(cfg: ArchConfig) -> List[Tuple[str, Optional[str]]]:
+    """(mixer, ffn) of each leading dense layer (``n_dense_lead`` of them,
+    before the superblocks)."""
+    return [(_attn_kind(cfg), "dense")] * cfg.n_dense_lead
 
 
 def n_superblocks(cfg: ArchConfig) -> int:
     per = len(superblock_layout(cfg))
-    if cfg.n_layers % per:
-        raise ValueError(f"{cfg.n_layers} layers do not split into "
-                         f"superblocks of {per}")
-    return cfg.n_layers // per
+    n = cfg.n_layers - cfg.n_dense_lead
+    if n % per:
+        raise ValueError(f"{n} layers do not split into superblocks of "
+                         f"{per}")
+    return n // per
+
+
+def check_tp(cfg: ArchConfig, tp: int) -> None:
+    """Raise unless ``cfg`` runs at ``tp``: MLA and the dropless expert
+    layer have no tensor-parallel shards."""
+    if tp > 1 and (cfg.is_mla or cfg.moe_kind == "dropless"):
+        raise ValueError(f"{cfg.name}: multi-head latent attention and the "
+                         f"dropless expert layer run at tp 1 only, not at "
+                         f"tp {tp}")
 
 
 def _layer_shapes(cfg: ArchConfig, n: int, mixer: str,
@@ -115,12 +148,15 @@ def _layer_shapes(cfg: ArchConfig, n: int, mixer: str,
     superblocks."""
     def stacked(shapes):
         return {k: (n,) + v for k, v in shapes.items()}
-    tree = {"norm1": (n, cfg.d_model),
-            "mixer": stacked(A.attn_shapes(cfg, tp) if mixer == "attn"
-                             else S.ssm_shapes(cfg))}
+    mixers = {"attn": lambda: A.attn_shapes(cfg, tp),
+              "mla": lambda: A.mla_shapes(cfg),
+              "ssm": lambda: S.ssm_shapes(cfg)}
+    ffns = {"moe": lambda: M.moe_shapes(cfg, tp),
+            "dropless": lambda: M.dropless_shapes(cfg),
+            "dense": lambda: M.mlp_shapes(cfg)}
+    tree = {"norm1": (n, cfg.d_model), "mixer": stacked(mixers[mixer]())}
     if ffn is not None:
-        tree["ffn"] = stacked(M.moe_shapes(cfg, tp) if ffn == "moe"
-                              else M.mlp_shapes(cfg))
+        tree["ffn"] = stacked(ffns[ffn]())
         tree["norm2"] = (n, cfg.d_model)
     return tree
 
@@ -130,13 +166,14 @@ def _layer_specs(cfg: ArchConfig, mixer: str, ffn: Optional[str]) -> dict:
     split dim moves one to the right)."""
     def stacked(specs):
         return {k: None if v is None else v + 1 for k, v in specs.items()}
-    tree = {"norm1": None,
-            "mixer": stacked(A.attn_param_specs(cfg) if mixer == "attn"
-                             else S.ssm_param_specs(cfg))}
+    mixers = {"attn": A.attn_param_specs, "mla": A.mla_param_specs,
+              "ssm": S.ssm_param_specs}
+    ffns = {"moe": M.moe_param_specs, "dropless": M.dropless_param_specs,
+            "dense": M.mlp_param_specs}
+    tree = {"norm1": None, "mixer": stacked(mixers[mixer](cfg))}
     if ffn is not None:
         tree["norm2"] = None
-        tree["ffn"] = stacked(M.moe_param_specs(cfg) if ffn == "moe"
-                              else M.mlp_param_specs(cfg))
+        tree["ffn"] = stacked(ffns[ffn](cfg))
     return tree
 
 
@@ -154,6 +191,7 @@ def _walk(tree, prefix="", out=None) -> list:
 def global_leaf_shapes(cfg: ArchConfig, tp: int = 1) -> Shapes:
     """(dotted path, shape) of every leaf of the reference's global tree at
     ``tp``, in ravel order."""
+    check_tp(cfg, tp)
     nsb = n_superblocks(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab(tp)
     tree = {
@@ -161,6 +199,9 @@ def global_leaf_shapes(cfg: ArchConfig, tp: int = 1) -> Shapes:
                    for i, (mx, ff) in enumerate(superblock_layout(cfg))},
         "norm_f": (d,), "w_out": (d, vp),
     }
+    if cfg.n_dense_lead:
+        tree["blocks"]["first"] = _layer_shapes(
+            cfg, cfg.n_dense_lead, *lead_layout(cfg)[0], tp)
     if cfg.embed_kind in ("tokens", "prefix"):
         tree["embed"] = (vp, d)
     return _walk(tree)
@@ -175,6 +216,8 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Optional[int]]:
                        for i, (mx, ff) in
                        enumerate(superblock_layout(cfg))},
             "norm_f": None, "w_out": 1}
+    if cfg.n_dense_lead:
+        tree["blocks"]["first"] = _layer_specs(cfg, *lead_layout(cfg)[0])
     if cfg.embed_kind in ("tokens", "prefix"):
         tree["embed"] = 0
     return dict(_walk(tree))
@@ -223,7 +266,7 @@ def _draw(cfg: ArchConfig, path: str, shape, tp: int,
     if leaf in ("embed", "router"):
         scale = 0.02
     elif leaf == "wd" and len(shape) == 4:
-        scale = cfg.d_ff ** -0.5          # an expert's slice of d_ff
+        scale = cfg.moe_ff ** -0.5        # an expert's slice of its width
     else:
         scale = shape[-2] ** -0.5
     return t * scale
@@ -269,16 +312,21 @@ def _sub(views: Dict[str, Any], prefix: str) -> Dict[str, Any]:
 # the order in which each layer kind's forward first uses its leaves
 _FORWARD_ORDER = {
     "attn": ("wq", "wk", "wv", "wo"),
+    "mla": ("wq", "wkva", "norm_kv", "wkvb", "wo"),
     "ssm": ("in_proj_x", "in_proj_z", "conv_w", "x_proj", "dt_proj",
             "dt_bias", "A_log", "D", "out_proj"),
     "dense": ("wg", "wu", "wd"),
     "moe": ("router", "wg", "wu", "wd"),
+    "dropless": ("router", "wg", "wu", "wd", "shared_wg", "shared_wu",
+                 "shared_wd"),
 }
 
 
 class Block(nn.Module):
-    """One pre-norm residual layer: a mixer (``"attn"`` | ``"ssm"``) and,
-    but for the SSM's layers, an FFN (``"dense"`` | ``"moe"``)."""
+    """One pre-norm residual layer: a mixer (``"attn"`` | ``"mla"`` |
+    ``"ssm"``) and, but for the SSM's layers, an FFN (``"dense"`` |
+    ``"moe"`` | ``"dropless"``, whose selection bias is the buffer
+    ``e_bias``, zero)."""
 
     def __init__(self, cfg: ArchConfig, views: Dict[str, torch.Tensor],
                  mixer: str, ffn: Optional[str], ctx: ParallelCtx = NO_TP):
@@ -291,6 +339,9 @@ class Block(nn.Module):
         self.norm2 = nn.Parameter(views["norm2"]) if ffn else None
         self.ffn = nn.ParameterDict(
             {k: nn.Parameter(t) for k, t in _sub(views, "ffn.").items()})
+        if ffn == "dropless":
+            self.register_buffer("e_bias", torch.zeros(
+                cfg.n_experts, device=views["norm1"].device))
 
     def forward_params(self) -> List[nn.Parameter]:
         """The layer's parameters in the order ``forward`` first uses
@@ -315,6 +366,8 @@ class Block(nn.Module):
         h_in = sp_gather(h, ctx) if ctx.sp else h
         if self.mixer_kind == "attn":
             y = attn_forward(self.mixer, h_in, cfg, ctx=ctx, outer=outer)
+        elif self.mixer_kind == "mla":
+            y = A.mla_forward(self.mixer, h_in, cfg)
         else:
             y = S.ssm_forward(self.mixer, h_in, cfg, ctx=ctx, outer=outer)
         x = x + (sp_scatter(y, ctx) if ctx.sp else y)
@@ -325,6 +378,9 @@ class Block(nn.Module):
             if self.ffn_kind == "moe":
                 y, aux = moe_forward(self.ffn, h_in, cfg, ctx, outer,
                                      x_shard=h if ctx.sp else None)
+            elif self.ffn_kind == "dropless":
+                y, aux = dropless_moe_forward(self.ffn, h_in, cfg,
+                                              self.e_bias)
             else:
                 y = mlp_forward(self.ffn, h_in, cfg, ctx, outer)
             x = x + (sp_scatter(y, ctx) if ctx.sp else y)
@@ -364,7 +420,11 @@ class Transformer(nn.Module):
             views[path] = flat[off:off + n].view(shape)
             off += n
         self.layout = superblock_layout(cfg)
-        blocks = []
+        self.n_lead = cfg.n_dense_lead
+        blocks = [Block(cfg, {p: v[i] for p, v in
+                              _sub(views, "blocks.first.").items()},
+                        mx, ff, ctx)
+                  for i, (mx, ff) in enumerate(lead_layout(cfg))]
         for sb in range(n_superblocks(cfg)):
             for i, (mx, ff) in enumerate(self.layout):
                 lv = {p: v[sb] for p, v in
@@ -378,9 +438,12 @@ class Transformer(nn.Module):
         self._flat = flat
 
     def superblocks(self) -> List[nn.ModuleList]:
-        per = len(self.layout)
-        return [self.blocks[i:i + per]
-                for i in range(0, len(self.blocks), per)]
+        """The units ``loss_fn`` checkpoints: each leading dense layer
+        alone, then the superblocks."""
+        per, lead = len(self.layout), self.n_lead
+        return [self.blocks[i:i + 1] for i in range(lead)] + \
+            [self.blocks[i:i + per]
+             for i in range(lead, len(self.blocks), per)]
 
     def grad_order(self) -> List[nn.Parameter]:
         """Every parameter in the order backward completes its gradient:
@@ -560,9 +623,12 @@ def _ffn(p, h: torch.Tensor, ffn: Optional[str], cfg: ArchConfig,
 
 def check_serving(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is an arch that decodes (every family but the
-    encoders)."""
+    encoders and the MLA archs, which have no latent KV cache yet)."""
     if cfg.family == "encoder":
         raise ValueError("encoder-only archs do not decode")
+    if cfg.is_mla:
+        raise ValueError(f"{cfg.name}: multi-head latent attention has no "
+                         "latent KV cache, so it does not serve yet")
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,

@@ -34,6 +34,9 @@
     step metrics' dp mean and the ``v_l1`` all-reduces).  Kineto records
     them on the device trace's clock, so each kernel and each idle gap
     of a trace falls to the span open on the host when it was launched.
+    Inside a block: ``model.mla`` (a latent-attention layer), ``model.moe``
+    (a dropless expert layer) and ``model.moe.dispatch`` in it (the
+    route and the permute kernel; again around the combine kernel).
 
   * **Collective counters** (:func:`count_collective`) — every
     ``torch.distributed`` call a training step makes, counted by the mesh
@@ -42,6 +45,13 @@
     ``wire_send_bytes`` convention: pairwise all_to_all, ring
     all_gather, all_reduce and reduce_scatter).  :func:`counters` reads
     them and :func:`reset_counters` clears them.
+
+  * **Device counters** (:func:`count_device`) — numbers the step keeps
+    on the device and never reads inside the step: ``moe.rows`` (the rows
+    a dropless expert layer sends to its held experts, summed over the
+    layers and steps) and ``moe.max_rows`` (the most rows any held expert
+    got).  :func:`counters` reads them after the steps, under their
+    group (``{"moe": {"rows", "max_rows"}}``).
 
 Scopes, spans and counters are live only while tracing is on
 (:func:`set_tracing`); off, a scope is one shared ``nullcontext`` and a
@@ -118,6 +128,10 @@ STATS_SPAN = "optim.stats"
 METRICS_SPAN = "train.metrics"
 STEP_SPANS = (FORWARD_SPAN, BACKWARD_SPAN, BLOCK_SPAN, UPDATE_SPAN,
               EXCHANGE_SPAN, STATS_SPAN, METRICS_SPAN)
+# the spans of the DeepSeek-V3 layers (an arch that has them)
+MLA_SPAN = "model.mla"
+MOE_SPAN = "model.moe"
+DISPATCH_SPAN = "model.moe.dispatch"
 
 
 def scope(name: str):
@@ -138,6 +152,7 @@ COLLECTIVE_KINDS = {"all_reduce": "all-reduce",
                     "all_to_all_single": "all-to-all"}
 
 _COUNTS: Dict[str, Dict[str, List[float]]] = {}
+_DEVICE_COUNTS: Dict[str, object] = {}
 _COUNTS_LOCK = threading.Lock()
 
 
@@ -169,19 +184,46 @@ def count_collective(fn: str, tensor, axes: Sequence[str], n: int
         row[1] += sent
 
 
-def counters() -> Dict[str, Dict[str, Dict[str, float]]]:
+def count_device(name: str, value, op: str = "sum") -> None:
+    """Fold the device tensor ``value`` into the device counter ``name``
+    (``"group.counter"``) by ``op`` ("sum" | "max"), on the device,
+    without a sync.  A no-op while tracing is off, and inside a backward
+    pass: a recompute's forward counts nothing again."""
+    if not _ENABLED:
+        return
+    import torch
+    if torch._C._current_graph_task_id() != -1:
+        return
+    v = value.detach().to(torch.int64)
+    with _COUNTS_LOCK:
+        cur = _DEVICE_COUNTS.get(name)
+        if cur is None:
+            _DEVICE_COUNTS[name] = v.clone()
+        else:
+            _DEVICE_COUNTS[name] = cur + v if op == "sum" else \
+                torch.maximum(cur, v)
+
+
+def counters() -> Dict[str, Dict[str, object]]:
     """``{axes: {kind: {"calls", "bytes"}}}`` counted since the last
     :func:`reset_counters` (axes joined by ``+``: ``dp``, ``model``,
-    ``pod+data``)."""
+    ``pod+data``), and each device counter ``"group.counter"`` as
+    ``{group: {counter: value}}`` (read from the device here)."""
     with _COUNTS_LOCK:
-        return {axes: {kind: {"calls": c, "bytes": b}
-                       for kind, (c, b) in kinds.items()}
-                for axes, kinds in _COUNTS.items()}
+        out: Dict[str, Dict[str, object]] = {
+            axes: {kind: {"calls": c, "bytes": b}
+                   for kind, (c, b) in kinds.items()}
+            for axes, kinds in _COUNTS.items()}
+        for name, v in _DEVICE_COUNTS.items():
+            group, counter = name.split(".", 1)
+            out.setdefault(group, {})[counter] = float(v)
+        return out
 
 
 def reset_counters() -> None:
     with _COUNTS_LOCK:
         _COUNTS.clear()
+        _DEVICE_COUNTS.clear()
 
 
 class Tracer:

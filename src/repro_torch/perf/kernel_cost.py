@@ -33,6 +33,12 @@ output written once:
     as the bf16 tensor-core products it runs, 2 T d V_l operations each
     (:func:`lm_head_xent_cost`).
 
+  * ``csrc/moe_dispatch.cu``: the dropless expert layer's permute and
+    combine move rows of d elements by index, counted at the launch's
+    true row counts (:func:`moe_permute_cost`, :func:`moe_combine_cost`):
+    ``filled`` rows of the T k buffer hold a pair, ``tokens`` tokens have
+    at least one.
+
 These are the byte counts of PERF.md's bound column, and the tests pin
 the closed forms to the reference's (``tests/test_torch_perf.py``).  The
 dry run (``launch.dryrun``) prices every kernel launch of a traced step
@@ -173,3 +179,35 @@ def lm_head_xent_cost(t: int, d: int, v_l: int, itemsize: int,
                        + 3 * 6 * t * v_l + F32 * t * d
                        + F32 * d * v_l * (2 * chunks - 1),
                        kernels=3 * chunks)
+
+
+def moe_permute_cost(t: int, k: int, d: int, itemsize: int, filled: int,
+                     tokens: int, backward: bool) -> ComputeSpec:
+    """One ``moe_permute`` launch on rows of d ``itemsize``-byte elements:
+    the forward reads the T k pair indices and each routed token's row
+    once and writes the filled rows; the backward reads the T k slots and
+    the filled rows and writes T rows, one add an element of a filled
+    row."""
+    if not backward:
+        return ComputeSpec(hbm_bytes=4 * t * k + (tokens + filled) * d
+                           * itemsize, kernels=1)
+    return ComputeSpec(flops=float(filled * d),
+                       hbm_bytes=4 * t * k + (filled + t) * d * itemsize,
+                       kernels=1)
+
+
+def moe_combine_cost(t: int, k: int, d: int, itemsize: int, filled: int,
+                     tokens: int, backward: bool) -> ComputeSpec:
+    """One ``moe_combine`` launch: the forward reads the T k slots and
+    gates and the filled rows and writes T rows (a multiply and an add an
+    element of a filled row); the backward reads the T k pair indices,
+    the filled pairs' gates, the routed tokens' cotangent rows and the
+    filled rows, and writes the filled rows' cotangents and their gates'
+    (three operations an element of a filled row)."""
+    if not backward:
+        return ComputeSpec(flops=2.0 * filled * d,
+                           hbm_bytes=8 * t * k + (filled + t) * d * itemsize,
+                           kernels=1)
+    return ComputeSpec(flops=3.0 * filled * d,
+                       hbm_bytes=4 * t * k + 8 * filled
+                       + (tokens + 2 * filled) * d * itemsize, kernels=1)

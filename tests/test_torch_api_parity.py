@@ -136,6 +136,21 @@ ADDED_ARGS = {
     "benchmarks/state_manifest.py::--tp":
         "the model-axis degree of the manifest's mesh",
 }
+# the DeepSeek-V3 archs' fields (moonlight-16b-a3b; the reference has none)
+for _n, _why in (
+        ("moe_kind", "the expert layer: the softmax-routed capacity layer "
+                     "or the sigmoid-routed dropless layer"),
+        ("moe_d_ff", "an expert's width apart from the dense d_ff"),
+        ("n_shared_experts", "shared experts that see every token"),
+        ("moe_gate_scale", "the scale of the renormalised sigmoid gates"),
+        ("experts_held", "the routed experts this chip holds (an EP share)"),
+        ("expert_first", "the first expert this chip holds"),
+        ("n_dense_lead", "leading dense layers before the MoE layers"),
+        ("kv_lora_rank", "MLA's latent width (0: no MLA)"),
+        ("qk_nope_dim", "MLA's q/k dims a head without rope"),
+        ("qk_rope_dim", "MLA's q/k dims a head with rope"),
+        ("v_head_dim", "MLA's v dims a head")):
+    ADDED_ARGS[f"configs/base.py::ArchConfig.{_n}"] = _why
 for _f in ("benchmarks/comm_sweep.py", "benchmarks/comm_volume.py",
            "benchmarks/kernel_sweep.py", "benchmarks/overlap_check.py",
            "benchmarks/run.py", "benchmarks/variance_stability.py",

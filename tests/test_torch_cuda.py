@@ -156,7 +156,8 @@ def test_small_run_on_card_matches_cpu(card):
                                    "flash_attention_wgmma": 0,
                                    "flash_attention_wide": 0,
                                    "lm_head_xent_fwd": 4,
-                                   "lm_head_xent_bwd": 4}
+                                   "lm_head_xent_bwd": 4,
+                                   "moe_permute": 0, "moe_combine": 0}
     cpu = run(device="cpu", **kw)
     np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
                                [h["loss"] for h in cpu["history"]],
@@ -297,7 +298,8 @@ def test_family_run_on_card_matches_cpu(card, arch):
                                    "flash_attention_wgmma": 0,
                                    "flash_attention_wide": 0,
                                    "lm_head_xent_fwd": 3,
-                                   "lm_head_xent_bwd": 3}
+                                   "lm_head_xent_bwd": 3,
+                                   "moe_permute": 0, "moe_combine": 0}
     cpu = run(device="cpu", **kw)
     np.testing.assert_allclose([h["loss"] for h in on_card["history"]],
                                [h["loss"] for h in cpu["history"]],

@@ -65,6 +65,13 @@ NEW_ARCHS = ["deepseek-7b", "falcon-mamba-7b", "granite-34b",
 # fields of the reference's ArchConfig the port does not carry, with the
 # value every registered config holds: none (the port carries remat_policy)
 REFERENCE_ONLY = {}
+# the port's own archs (DeepSeek-V3's MLA and dropless expert layer), and
+# the fields they add, at the value every one of the reference's archs holds
+PORT_ARCHS = ["moonlight-16b-a3b", "moonlight-16b-a3b-ep8"]
+PORT_ONLY = {"moe_kind": "capacity", "moe_d_ff": 0, "n_shared_experts": 0,
+             "moe_gate_scale": 1.0, "experts_held": 0, "expert_first": 0,
+             "n_dense_lead": 0, "kv_lora_rank": 0, "qk_nope_dim": 0,
+             "qk_rope_dim": 0, "v_head_dim": 0}
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 GRAD_ATOL_SHARE = 1e-5
@@ -106,7 +113,8 @@ def _port_model(arch, params):
 # --------------------------------------------------------------------------
 
 def test_registry_matches_reference():
-    assert list_archs() == jlist_archs() == ARCHS
+    assert jlist_archs() == ARCHS
+    assert list_archs() == sorted(ARCHS + PORT_ARCHS)
 
 
 @pytest.mark.parametrize("size", ["full", "reduced"])
@@ -115,9 +123,10 @@ def test_config_fields_match_reference(arch, size):
     cfg, jcfg = get_config(arch), jget_config(arch)
     if size == "reduced":
         cfg, jcfg = cfg.reduced(), jcfg.reduced()
-    mine = {f.name for f in dataclasses.fields(ArchConfig)}
+    mine = {f.name for f in dataclasses.fields(ArchConfig)} - set(PORT_ONLY)
     theirs = {f.name for f in dataclasses.fields(jcfg)}
     assert mine <= theirs
+    assert {n: getattr(cfg, n) for n in PORT_ONLY} == PORT_ONLY
     assert {n: getattr(jcfg, n) for n in theirs - mine} == REFERENCE_ONLY
     for name in sorted(mine):
         assert getattr(cfg, name) == getattr(jcfg, name), name

@@ -163,7 +163,8 @@ def test_cpu_generate_launches_no_kernel(params):
                                      "flash_attention_wgmma": 0,
                                      "flash_attention_wide": 0,
                                      "lm_head_xent_fwd": 0,
-                                     "lm_head_xent_bwd": 0}
+                                     "lm_head_xent_bwd": 0,
+                                     "moe_permute": 0, "moe_combine": 0}
 
 
 @pytest.mark.parametrize("impl", ["pallas", "full"])

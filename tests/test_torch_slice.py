@@ -154,7 +154,8 @@ def test_port_imports_neither_jax_nor_reference():
         "assert r['launches'] == {'ef_compress': 0, 'decompress': 0,"
         " 'adam_step': 0, 'flash_attention': 0,"
         " 'flash_attention_wgmma': 0, 'flash_attention_wide': 0,"
-        " 'lm_head_xent_fwd': 0, 'lm_head_xent_bwd': 0},"
+        " 'lm_head_xent_fwd': 0, 'lm_head_xent_bwd': 0,"
+        " 'moe_permute': 0, 'moe_combine': 0},"
         " r['launches']\n"
         "import dataclasses, torch\n"
         "from repro_torch.configs import get_config\n"
